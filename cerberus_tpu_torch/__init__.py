@@ -1,0 +1,15 @@
+"""cerberus_tpu_torch — the PyTorch/CUDA port of cerberus_tpu.
+
+A second package beside the JAX one, with the same module paths: the
+sliding-window VILO problem (IMU+leg preintegration, stereo projection
+factors, structured Gauss-Newton assembly) and its batched
+Levenberg-Marquardt solve, on torch tensors. The solve's dense Cholesky step
+is a hand-written CUDA kernel for Hopper (`csrc/lane_cholesky.cu`), built
+with `nvcc` on first use and loaded with `ctypes` (`_build.py`).
+
+The port imports neither JAX nor anything of `cerberus_tpu`. Entry points
+that make tensors put them on the card unless the caller names another
+device.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,49 @@
+"""Carry a window between the JAX package and the port as numpy arrays.
+
+`window_from_numpy` takes a WindowState and a WindowData whose leaves are
+numpy arrays (the JAX package's NamedTuples after `np.asarray` on every
+leaf, or any object with the same field names as attributes) and makes the
+port's.
+`window_to_numpy` goes back: the port's NamedTuples with numpy leaves, from
+which the JAX package's types are made field by field. Nothing of the JAX
+package is imported here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cerberus_tpu_torch.device import resolve_device
+from cerberus_tpu_torch.ops import factors as fac
+
+
+def _to_port(cls, obj, conv):
+    fields = {}
+    for name in cls._fields:
+        x = getattr(obj, name)
+        fields[name] = (_to_port(fac.WindowState, x, conv)
+                        if name == "prior_lin" else conv(x))
+    return cls(**fields)
+
+
+def window_from_numpy(state_np, data_np, *, device="cuda",
+                      dtype=torch.float64):
+    """(WindowState, WindowData) of the port on `device`: float leaves in
+    `dtype`, bool and int leaves keep their type."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        a = np.asarray(x)      # torch.tensor copies: the port owns its data
+        if a.dtype.kind == "f":
+            return torch.tensor(a, dtype=dtype, device=dev)
+        return torch.tensor(a, device=dev)
+
+    return (_to_port(fac.WindowState, state_np, conv),
+            _to_port(fac.WindowData, data_np, conv))
+
+
+def window_to_numpy(state: fac.WindowState, data: fac.WindowData):
+    """The port's (WindowState, WindowData) with numpy leaves."""
+    to_np = lambda t: t.detach().cpu().numpy()
+    return fac.map_tensors(to_np, state), fac.map_tensors(to_np, data)

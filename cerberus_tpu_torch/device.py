@@ -1,0 +1,40 @@
+"""Where the port's tensors live, and the matmul precision it runs at."""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point makes its tensors on.
+
+    The port runs on the card unless the caller names another device; it
+    never falls back to the CPU on its own."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: pass device='cpu' to run on the CPU")
+    return dev
+
+
+@contextlib.contextmanager
+def full_f32_matmuls():
+    """Run float32 matmuls and convolutions in full float32, never TF32.
+
+    The counterpart of the JAX package's
+    `jax.default_matmul_precision("highest")`: TF32 keeps ~3 decimal digits,
+    which swamps the weakest gradient directions (rho calibration, td) of the
+    window assembly. Sets `torch.backends.cuda.matmul.allow_tf32` and
+    `torch.backends.cudnn.allow_tf32` to False for the block and restores
+    them after."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old

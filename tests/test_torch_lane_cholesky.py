@@ -1,0 +1,80 @@
+"""The port's lane-Cholesky solve: its plain version against the JAX
+package's Pallas kernel (interpret mode, as tests/test_lane_cholesky.py runs
+it on the CPU) and against its XLA reference.
+
+SPD inputs as tests/test_lane_cholesky.py makes them (J^T J + 0.5 I from a
+numpy seed). Tolerances, as max |x - x_ref| / max |x_ref|: 1e-10 in f64 (two
+Cholesky solves of a matrix with condition ~1e3 differ by roundoff only),
+2e-3 in f32 (test_lane_cholesky.py's bound for the TPU kernel at f32).
+The kernel's own tests need the card and live in test_torch_cuda.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cerberus_tpu.ops.lane_cholesky import (LANES, lane_cholesky_solve as
+                                            j_lane_solve,
+                                            lane_cholesky_solve_ref)
+from cerberus_tpu_torch.ops import lane_cholesky as tlc
+
+
+def _spd(seed, B, n, dtype):
+    rng = np.random.default_rng(seed)
+    J = rng.normal(size=(B, n + 5, n)).astype(dtype)
+    A = np.einsum("bij,bik->bjk", J, J) + 0.5 * np.eye(n, dtype=dtype)
+    b = rng.normal(size=(B, n)).astype(dtype)
+    return A, b
+
+
+def _rel_err(x, want):
+    x, want = np.asarray(x, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(x - want)) / np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-10), ("float32", 2e-3)])
+@pytest.mark.parametrize("n", [16, 37, 222])
+def test_plain_matches_jax_kernel_and_ref(n, dtype, tol):
+    A, b = _spd(n, LANES, n, dtype)
+    x = tlc.lane_cholesky_solve_plain(torch.as_tensor(A), torch.as_tensor(b))
+    assert x.dtype == torch.float32 if dtype == "float32" else torch.float64
+    want_kernel = j_lane_solve(jnp.asarray(A), jnp.asarray(b), interpret=True)
+    want_ref = lane_cholesky_solve_ref(jnp.asarray(A), jnp.asarray(b))
+    for label, want in (("pallas_interpret", want_kernel), ("ref", want_ref)):
+        err = _rel_err(x.numpy(), want)
+        print(f"PORT_DIFF lane_cholesky.plain_vs_{label}[{dtype},n={n}] "
+              f"max_rel={err:.3e}")
+        assert err < tol
+
+
+def test_cholesky_plain_factor():
+    A, _ = _spd(1, 3, 29, "float64")
+    L = tlc.cholesky_plain(torch.as_tensor(A)).numpy()
+    np.testing.assert_allclose(L, np.linalg.cholesky(A), rtol=1e-12,
+                               atol=1e-12)
+    assert np.all(np.triu(L, 1) == 0)
+    bad = A.copy()
+    bad[0, 5, 5] = -1.0                   # not SPD: NaN, as LAPACK gives
+    assert np.isnan(tlc.cholesky_plain(torch.as_tensor(bad)).numpy()[0]).any()
+
+
+def test_wrapper_on_cpu_runs_plain_version():
+    A, b = _spd(2, 5, 24, "float64")          # any B: no lane multiple
+    before = tlc.LAUNCHES
+    x = tlc.lane_cholesky_solve(torch.as_tensor(A), torch.as_tensor(b))
+    assert tlc.LAUNCHES == before
+    np.testing.assert_allclose(x.numpy(), np.linalg.solve(A, b[..., None])[..., 0],
+                               rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("shapes", [((2, 4, 5), (2, 4)), ((2, 4, 4), (2, 5)),
+                                    ((4, 4), (4,)), ((2, 4, 4), (3, 4))])
+def test_wrapper_rejects_bad_shapes(shapes):
+    a_shape, b_shape = shapes
+    with pytest.raises(ValueError):
+        tlc.lane_cholesky_solve(torch.zeros(a_shape), torch.zeros(b_shape))
+
+
+def test_smem_limit_bounds_n():
+    assert tlc.smem_bytes(222) == 198_912
+    assert tlc.smem_bytes(240) <= tlc.SMEM_LIMIT < tlc.smem_bytes(241)

@@ -1,0 +1,83 @@
+"""The port stands alone: it imports neither JAX nor anything of the JAX
+package, and its entry points put tensors on the card unless told
+otherwise."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+NO_JAX_SCRIPT = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None            # any `import jax` now raises
+    sys.modules["cerberus_tpu"] = None   # so does the JAX package
+    import importlib, pkgutil
+    import torch
+    import cerberus_tpu_torch
+    for m in pkgutil.walk_packages(cerberus_tpu_torch.__path__,
+                                   "cerberus_tpu_torch."):
+        importlib.import_module(m.name)
+    import chip_smoke
+    from cerberus_tpu_torch.data.simulator import SimConfig, simulate
+    from cerberus_tpu_torch.data.window_builder import build_window_from_sim
+    from cerberus_tpu_torch.ops import factors as fac
+    from cerberus_tpu_torch.ops.solver import SolveOptions, solve_window_batched
+    sim = simulate(SimConfig(duration=2.0, speed=0.5, seed=3, n_landmarks=80))
+    data, truth, Fa = build_window_from_sim(sim, kf_stride=1, start_cam=2,
+                                            F=8, device="cpu")
+    B = 2
+    states = fac.map_tensors(lambda x: torch.stack([x] * B), truth)
+    states = states._replace(p=states.p + 0.01 * torch.arange(B)[:, None, None])
+    datas = fac.map_tensors(lambda x: x.expand((B,) + x.shape), data)
+    st, info = solve_window_batched(states, datas, SolveOptions(max_iters=1))
+    assert torch.isfinite(info.cost).all() and (info.cost <= info.cost0).all()
+    assert not any(name == "jax" or name.startswith(("jax.", "jaxlib"))
+                   or name.startswith("cerberus_tpu.")
+                   for name, mod in sys.modules.items() if mod is not None)
+    print("NO_JAX_OK", Fa)
+""")
+
+
+def test_port_runs_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", NO_JAX_SCRIPT], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "NO_JAX_OK" in res.stdout
+
+
+def test_chip_smoke_fails_without_cuda():
+    """Without a card the script exits non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_entry_points_default_to_cuda():
+    """Without device=, an entry point that makes tensors asks for the card
+    and raises when there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cerberus_tpu_torch import convert
+    from cerberus_tpu_torch.data.window_builder import build_window_from_sim
+    from cerberus_tpu_torch.device import resolve_device
+    from cerberus_tpu_torch.ops import factors as fac
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_window_from_sim({"cam_idx": np.arange(40)})
+    st = fac.WindowState.zero(4, device="cpu")
+    st_np, _ = convert.window_to_numpy(st, st)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.window_from_numpy(st_np, None)
+    assert resolve_device("cpu") == torch.device("cpu")
