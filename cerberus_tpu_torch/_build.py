@@ -2,8 +2,9 @@
 
 A source `csrc/<name>.cu` becomes a shared library with a plain C
 interface, `build/cerberus_tpu_torch/lib<name>-<hash>.so` beside the
-package, where <hash> covers the source and the flags: an edited source
-builds anew on first use, an unchanged one is loaded as it is.
+package, where <hash> covers the source, the headers `csrc/*.cuh` it may
+include and the flags: an edited source or header builds anew on first
+use, an unchanged one is loaded as it is.
 `torch.utils.cpp_extension` is not used: a source that includes PyTorch's
 headers takes minutes to compile, a plain C one seconds.
 """
@@ -35,7 +36,8 @@ def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless its library exists; returns its path."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(src.read_bytes())
+    for path in [src, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.read_bytes())
     lib = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

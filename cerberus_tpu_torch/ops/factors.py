@@ -23,8 +23,8 @@ Residual stack (rows):
 
 `retract`, `local_diff` and `robust_cost`'s callers may give any number of
 leading batch dimensions; the residual functions take one window and are
-batched with `torch.func.vmap`. The dense `linearize` and
-`feature_reproj_errors` are not ported yet.
+batched with `torch.func.vmap`. The dense `linearize` is not ported (the
+port linearizes through ops/structured.py).
 """
 
 from __future__ import annotations
@@ -353,3 +353,16 @@ def robust_cost(r: torch.Tensor, F: int):
         2.0 * HUBER_DELTA * torch.sqrt(torch.clamp(sq, min=1e-30)) - d2)
     other = torch.sum(r[: sl.start] ** 2) + torch.sum(r[sl.stop:] ** 2)
     return 0.5 * (torch.sum(rho) + other)
+
+
+def feature_reproj_errors(st: WindowState, data: WindowData):
+    """(F,) average unwhitened reprojection error per feature, in normalized
+    units (multiply by FOCAL_LENGTH for pixels) — reference:
+    estimator.cpp:1741-1798 outliersRejection."""
+    r = _proj_residuals(st, data) / PROJ_SQRT_INFO            # (F, 11, 4)
+    F = r.shape[0]
+    err = torch.linalg.vector_norm(r.reshape(F, -1, 2), dim=-1)  # (F, 22)
+    frames = torch.arange(NF, device=r.device)
+    mono_ok = data.f_obs & (frames[None, :] != data.f_start[:, None])
+    cnt = torch.stack([mono_ok, data.f_stereo], dim=-1).reshape(F, -1).sum(1)
+    return torch.sum(err, dim=1) / torch.clamp(cnt, min=1)

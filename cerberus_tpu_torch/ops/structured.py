@@ -11,8 +11,9 @@ dynamic coupling (a projection factor's anchor frame) is a one-hot
 contraction, so the whole assembly is free of in-place writes and runs under
 `torch.func.vmap` over a batch of windows.
 
-The full-matrix `build_normal_equations` and `linearize_rows` are not
-ported yet.
+`linearize_rows` assembles the weighted Jacobian itself, row by row, from
+the same per-factor Jacobians, for the marginalization. The full-matrix
+`build_normal_equations` is not ported.
 """
 
 from __future__ import annotations
@@ -316,3 +317,52 @@ def build_normal_equations_blocks(st: fac.WindowState, data: fac.WindowData):
     # residual vector for cost bookkeeping (same ordering as factors stack)
     r0 = torch.cat([r_il.reshape(-1), r_p.reshape(-1), r_prior, r_calib])
     return H_pp, H_pd, h_dd, b_p, b_d, r0
+
+
+def linearize_rows(st: fac.WindowState, data: fac.WindowData):
+    """Weighted residual r (N,) and dense Jacobian J (N, 222 + F) assembled
+    from the same per-factor small Jacobians as
+    `build_normal_equations_blocks`: the JAX package's `linearize_rows`, the
+    marginalization's linearization. Row/column layout and IRLS/free-mask
+    treatment match the JAX package's `factors.linearize`. One window (no
+    batch axis); the rows are placed by slice assignment."""
+    F = st.depth.shape[0]
+    dtype, dev = st.p.dtype, st.p.device
+    D = fac.D_DENSE
+    J = torch.zeros((fac.num_residuals(F), fac.tangent_dim(F)), dtype=dtype,
+                    device=dev)
+
+    # ---- IMU+leg rows: batched (10, 31, 38) evaluation, static placement --
+    r_il, J_il = _ileg_rows(st, data)
+    for k in range(NI):
+        row = 31 * k
+        for a0, a1, g0 in ((0, 12, fac.POSE_OFF + 6 * k),
+                           (12, 30, fac.SB_OFF + 9 * k),
+                           (30, 38, fac.RHO_OFF + 4 * k)):
+            J[row:row + 31, g0:g0 + (a1 - a0)] = J_il[k, :, a0:a1]
+
+    # ---- projection rows: [pose(66) | ex0 ex1(12) | td(1)] and the depth
+    # column of each row's feature (rows are feature-major) ----
+    r_p, r_pw, A79, jd = _proj_rows_split(st, data)
+    rows = slice(310, 310 + F * NF * 4)
+    J[rows, fac.POSE_OFF:fac.POSE_OFF + 66] = A79[:, 0:66]
+    J[rows, fac.EX0_OFF:fac.EX0_OFF + 12] = A79[:, 66:78]
+    J[rows, fac.TD_OFF] = A79[:, 78]
+    Ed = torch.eye(F, dtype=dtype, device=dev).repeat_interleave(NF * 4, 0)
+    J[rows, D:] = jd[:, None] * Ed
+
+    # ---- prior rows ----
+    r_prior = fac._zero_where(
+        data.prior_valid,
+        data.prior_r + data.prior_J @ fac.local_diff(st, data.prior_lin))
+    row1 = rows.stop
+    J[row1:row1 + D, :D] = fac._zero_where(data.prior_valid, data.prior_J)
+
+    # ---- calibration prior rows (diagonal on ex0/ex1/td) ----
+    r_calib = fac._calib_residuals(st, data)
+    row2 = row1 + D
+    J[row2:row2 + 13, fac.EX0_OFF:fac.TD_OFF + 1] = torch.diag(data.calib_w)
+
+    r = torch.cat([r_il.reshape(-1), r_pw.reshape(-1), r_prior, r_calib])
+    col_mask = torch.cat([data.free_mask.to(dtype), data.f_valid.to(dtype)])
+    return r, J * col_mask[None, :]

@@ -6,22 +6,32 @@
 Phases, each printed with its elapsed seconds:
   1. environment: torch and CUDA versions, the card's name and power limit;
      fails without a CUDA device (there is no CPU fallback);
-  2. build: the kernel source cerberus_tpu_torch/csrc/lane_cholesky.cu, by
-     nvcc into build/cerberus_tpu_torch/;
-  3. kernels: each kernel against its plain torch version on the card, f32,
-     at several shapes and at the main path's, timed with CUDA events beside
+  2. build: the kernel sources cerberus_tpu_torch/csrc/*.cu, one nvcc each,
+     all started together, into build/cerberus_tpu_torch/;
+  3. kernels: each kernel against its plain torch version on the card at
+     several shapes and at its paths' shapes, timed with CUDA events beside
      its plain version, one library call computing the same function, and
-     the least time the card could take;
-  4. main path: the batched full-width window solve — 128 windows of the
+     the least time the card could take:
+       - lane_cholesky_solve f32 (the batched solve's) and f64 (the
+         streaming estimator's, a packed-triangle factor);
+       - cholesky_solve, f32 (on no path of the port, as its TPU original);
+  4. batched path: the batched full-width window solve — 128 windows of the
      10 s simulated sequence (11 frames, F = 160, 222-dim reduced system),
      12 LM iterations, f32 — with every kernel launch counted, the results
      checked, cross-checked against the CPU, and timed; the single-window
      path (solve_window, B = 1) likewise counted and timed;
-  5. with --profile: one batched solve under torch.profiler, its host time
-     split by the solver's spans (assemble, solve_step) and the device time
-     of its kernels.
+  5. streaming path: the per-frame streaming estimator at full width
+     (default EstimatorConfig: 11-frame window, F = 160, 12 LM iterations,
+     f64, stereo, leg odometry, online rho, extrinsic estimation) replaying
+     two simulated sequences, 20 camera frames each, with the end-to-end
+     tests' gates, the f64 kernel's launches counted per solve, and the
+     first 14 frames cross-checked against the port on the CPU;
+  6. with --profile: one batched solve and one streaming step under
+     torch.profiler, host time split by the code's spans and the device time
+     of their kernels.
 
-Ends with a JSON line of the kernels' numbers, then the result line
+Ends with a line of each kernel's launches per path, the card's name and
+power limit, a JSON line of the kernels' numbers, then the result line
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero without the result line. It writes nothing outside build/.
 """
@@ -34,31 +44,49 @@ import argparse  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
+from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from cerberus_tpu_torch import _build  # noqa: E402
+from cerberus_tpu_torch.config import EstimatorConfig  # noqa: E402
+from cerberus_tpu_torch.data.replay import replay  # noqa: E402
 from cerberus_tpu_torch.data.simulator import SimConfig, simulate  # noqa: E402
 from cerberus_tpu_torch.data.window_builder import build_window_from_sim  # noqa: E402
+from cerberus_tpu_torch.estimator import estimator as E  # noqa: E402
+from cerberus_tpu_torch.ops import cholesky_solve as cs  # noqa: E402
 from cerberus_tpu_torch.ops import factors as fac  # noqa: E402
 from cerberus_tpu_torch.ops import lane_cholesky as lc  # noqa: E402
 from cerberus_tpu_torch.ops.solver import (SolveOptions, solve_window,  # noqa: E402
                                            solve_window_batched)
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth and
-# float32 outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth,
+# float32 and float64 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12
 
-BATCH = 128          # windows in the main path's batched solve
+BATCH = 128          # windows in the batched solve
 ITERS = 12           # LM iterations (reference max_num_iterations)
 CHECK_WINDOWS = 8    # windows cross-checked against the CPU
-TOL = 2e-3           # kernel vs plain, max |dx| / max |x| (f32)
+TOL = 2e-3           # f32 kernels vs plain, max |dx| / max |x|
+TOL_F64 = 1e-10      # f64 kernel vs plain, max |dx| / max |x|
+STREAM_FRAMES = 20   # camera frames per streaming sequence
+CHECK_FRAMES = 14    # frames of sequence A cross-checked against the CPU
 
-KERNEL = dict(name="lane_cholesky_solve", route="cuda",
-              source="cerberus_tpu_torch/csrc/lane_cholesky.cu",
-              replaces="cerberus_tpu/ops/lane_cholesky.py:45")
+# kernel rows: (name, dtype) -> what the JSON line says of it
+KERNELS = {
+    ("lane_cholesky_solve[f32]", torch.float32): dict(
+        route="cuda", source="cerberus_tpu_torch/csrc/lane_cholesky.cu",
+        replaces="cerberus_tpu/ops/lane_cholesky.py:45"),
+    ("lane_cholesky_solve[f64]", torch.float64): dict(
+        route="cuda", source="cerberus_tpu_torch/csrc/lane_cholesky.cu",
+        replaces="cerberus_tpu/ops/lane_cholesky.py:45"),
+    ("cholesky_solve", torch.float32): dict(
+        route="cuda", source="cerberus_tpu_torch/csrc/cholesky_solve.cu",
+        replaces="cerberus_tpu/ops/pallas_kernels.py:53"),
+}
 
 
 def phase(name, t0, **numbers):
@@ -66,13 +94,37 @@ def phase(name, t0, **numbers):
     print(f"[{name}] {time.perf_counter() - t0:.3f} s{extra}", flush=True)
 
 
-def spd(seed, B, n, device):
+def spd(seed, B, n, device, dtype=torch.float32):
     """SPD systems as tests/test_lane_cholesky.py makes them."""
     rng = np.random.default_rng(seed)
-    J = rng.normal(size=(B, n + 5, n)).astype(np.float32)
-    A = np.einsum("bij,bik->bjk", J, J) + 0.5 * np.eye(n, dtype=np.float32)
+    J = rng.normal(size=(B, n + 5, n))
+    A = np.einsum("bij,bik->bjk", J, J) + 0.5 * np.eye(n)
+    b = rng.normal(size=(B, n))
+    if dtype == torch.float32:     # made in f32, as that test makes them
+        J32 = J.astype(np.float32)
+        A = (np.einsum("bij,bik->bjk", J32, J32)
+             + 0.5 * np.eye(n, dtype=np.float32))
+    return (torch.as_tensor(A, dtype=dtype, device=device),
+            torch.as_tensor(b, dtype=dtype, device=device))
+
+
+def spd_pallas(seed, B, n, device, pad=0):
+    """SPD systems as tests/test_pallas_kernels.py makes them, f32, each with
+    its own damping lam from 1e-3 to 1e-1 (log-spaced), so that a kernel
+    that drops the damping or damps every system alike is off by far more
+    than TOL. pad > 0 zeroes the last pad rows and columns of H and entries
+    of b, as the TPU kernel pads n to a multiple of 128: only the 1e-12 term
+    keeps those pivots nonzero. Returns (H, b, lam)."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, n, n)).astype(np.float32)
+    H = np.einsum("bij,bkj->bik", A, A) + n * np.eye(n, dtype=np.float32)
     b = rng.normal(size=(B, n)).astype(np.float32)
-    return torch.as_tensor(A, device=device), torch.as_tensor(b, device=device)
+    if pad:
+        H[:, n - pad:, :] = 0.0
+        H[:, :, n - pad:] = 0.0
+        b[:, n - pad:] = 0.0
+    lam = np.geomspace(1e-3, 1e-1, B).astype(np.float32)
+    return tuple(torch.as_tensor(a, device=device) for a in (H, b, lam))
 
 
 def cuda_ms(fn, reps):
@@ -101,6 +153,32 @@ def host_s(fn, reps):
     return float(np.median(times))
 
 
+def rel_err(x, ref):
+    return float((x - ref).abs().max() / ref.abs().max())
+
+
+def bound(bytes_moved, flops, flop_rate):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over the type's peak rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def reset_counts():
+    lc.LAUNCHES = 0
+    for k in lc.LAUNCHES_BY_DTYPE:
+        lc.LAUNCHES_BY_DTYPE[k] = 0
+    cs.LAUNCHES = 0
+
+
+def read_counts():
+    """Launches since reset_counts(), per kernel row."""
+    return {"lane_cholesky_solve[f32]": lc.LAUNCHES_BY_DTYPE[torch.float32],
+            "lane_cholesky_solve[f64]": lc.LAUNCHES_BY_DTYPE[torch.float64],
+            "cholesky_solve": cs.LAUNCHES}
+
+
 def environment():
     t0 = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -121,54 +199,131 @@ def environment():
 
 def build():
     t0 = time.perf_counter()
-    lib = _build.build("lane_cholesky")
-    phase("build", t0, library=lib.name)
+    names = ("lane_cholesky", "cholesky_solve")
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(_build.build, names))
+    phase("build", t0, libraries=",".join(lib.name for lib in libs))
 
 
-def check_kernel(dev):
-    """The kernel against its plain version; numbers at the main path's
-    shape (B = 128 windows, n = 222)."""
+def lane_numbers(dev, dtype, B, n):
+    """Error, times and bound of lane_cholesky_solve at (B, n)."""
+    A, b = spd(7, B, n, dev, dtype)
+    x = lc.lane_cholesky_solve(A, b)
+    xp = lc.lane_cholesky_solve_plain(A, b)
+    torch.cuda.synchronize()
+
+    def library():
+        L = torch.linalg.cholesky_ex(A).L
+        return torch.cholesky_solve(b[..., None], L)[..., 0]
+
+    es = A.element_size()
+    # the lower triangle of A (all a Cholesky solve reads) and b in, x out
+    bound_ms, bound_by = bound(
+        es * (B * n * (n + 1) // 2 + 2 * B * n), B * (n ** 3 / 3 + 2 * n * n),
+        F64_FLOP_PER_S if dtype == torch.float64 else F32_FLOP_PER_S)
+    return dict(
+        max_abs_err=float((x - xp).abs().max()),
+        ms=cuda_ms(lambda: lc.lane_cholesky_solve(A, b), 50),
+        plain_ms=cuda_ms(lambda: lc.lane_cholesky_solve_plain(A, b), 5),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=cuda_ms(library, 20), shape=[B, n])
+
+
+def damping_is_seen(H, b, lam, xp, pad):
+    """The inputs can tell the kernel's damping apart: without the lam term,
+    or with lam[0] for every system, the plain version moves by more than
+    5 TOL; on padded systems, without the 1e-12 term it is not finite."""
+    B = H.shape[0]
+    for what, x in (("no lam", cs.cholesky_solve_plain(H, b, 0.0)),
+                    ("lam[0] for all",
+                     cs.cholesky_solve_plain(H, b, lam[:1].expand(B)))):
+        if not rel_err(x, xp) > 5 * TOL:
+            raise AssertionError(f"cholesky_solve inputs B={B}: {what} moves "
+                                 f"x by only {rel_err(x, xp)}")
+    if pad:
+        d = torch.diagonal(H, dim1=-2, dim2=-1)
+        x = lc.lane_cholesky_solve_plain(
+            H + torch.diag_embed(lam[:, None] * d), -b)
+        if torch.isfinite(x).all():
+            raise AssertionError("cholesky_solve padded inputs: finite "
+                                 "without the 1e-12 term")
+
+
+def cholesky_solve_numbers(dev, B, n, pad=0):
+    """Error, times and bound of cholesky_solve at (B, n), f32."""
+    H, b, lam = spd_pallas(900 + n + B, B, n, dev, pad)
+    x = cs.cholesky_solve(H, b, lam)
+    xp = cs.cholesky_solve_plain(H, b, lam)
+    torch.cuda.synchronize()
+    damping_is_seen(H, b, lam, xp, pad)
+    Hd = cs.damp(H, lam)
+
+    def library():
+        L = torch.linalg.cholesky_ex(Hd).L
+        return torch.cholesky_solve(-b[..., None], L)[..., 0]
+
+    # H's lower triangle, b and lam in, x out; the damping is n adds and
+    # multiplies per system
+    bound_ms, bound_by = bound(
+        4 * (B * n * (n + 1) // 2 + 2 * B * n + B),
+        B * (n ** 3 / 3 + 2 * n * n + 2 * n), F32_FLOP_PER_S)
+    return dict(
+        max_abs_err=float((x - xp).abs().max()), rel_err=rel_err(x, xp),
+        ms=cuda_ms(lambda: cs.cholesky_solve(H, b, lam), 50),
+        plain_ms=cuda_ms(lambda: cs.cholesky_solve_plain(H, b, lam), 5),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=cuda_ms(library, 20), shape=[B, n])
+
+
+def check_kernels(dev):
+    """Every kernel against its plain version at several shapes, then its
+    numbers at its paths' shapes. Returns {row name: numbers}."""
     t0 = time.perf_counter()
     for n in (16, 37, 222):
         for B in (1, 64, 128, 130):
             A, b = spd(1000 * n + B, B, n, dev)
-            x = lc.lane_cholesky_solve(A, b)
-            torch.cuda.synchronize()
-            xp = lc.lane_cholesky_solve_plain(A, b)
-            torch.cuda.synchronize()
-            err = float((x - xp).abs().max() / xp.abs().max())
+            err = rel_err(lc.lane_cholesky_solve(A, b),
+                          lc.lane_cholesky_solve_plain(A, b))
             if not err < TOL:
-                raise AssertionError(f"lane_cholesky_solve n={n} B={B}: "
+                raise AssertionError(f"lane_cholesky_solve f32 n={n} B={B}: "
                                      f"relative error {err} >= {TOL}")
-    B, n = BATCH, 222
-    A, b = spd(7, B, n, dev)
-    x = lc.lane_cholesky_solve(A, b)
-    xp = lc.lane_cholesky_solve_plain(A, b)
-    torch.cuda.synchronize()
-    max_abs = float((x - xp).abs().max())
+    f32 = lane_numbers(dev, torch.float32, BATCH, 222)
+    phase("kernel lane_cholesky_solve[f32]", t0, **f32)
 
-    def library():
-        L = torch.linalg.cholesky(A)
-        return torch.cholesky_solve(b[..., None], L)[..., 0]
+    t0 = time.perf_counter()
+    for n in (16, 37, 222, 238):
+        for B in (1, 128):
+            A, b = spd(2000 * n + B, B, n, dev, torch.float64)
+            err = rel_err(lc.lane_cholesky_solve(A, b),
+                          lc.lane_cholesky_solve_plain(A, b))
+            if not err < TOL_F64:
+                raise AssertionError(f"lane_cholesky_solve f64 n={n} B={B}: "
+                                     f"relative error {err} >= {TOL_F64}")
+    f64 = lane_numbers(dev, torch.float64, 1, 222)
+    phase("kernel lane_cholesky_solve[f64]", t0, **f64)
+    f64_batch = lane_numbers(dev, torch.float64, BATCH, 222)
+    phase("kernel lane_cholesky_solve[f64] at B=128", t0, **f64_batch)
 
-    # the lower triangle of A (all a Cholesky solve reads) and b in, x out
-    bytes_moved = 4 * (B * n * (n + 1) // 2 + 2 * B * n)
-    flops = B * (n ** 3 / 3 + 2 * n * n)              # factor + 2 solves
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    numbers = dict(
-        max_abs_err=max_abs,
-        ms=cuda_ms(lambda: lc.lane_cholesky_solve(A, b), 50),
-        plain_ms=cuda_ms(lambda: lc.lane_cholesky_solve_plain(A, b), 20),
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=cuda_ms(library, 20))
-    phase("kernel", t0, **numbers)
-    return numbers
+    t0 = time.perf_counter()
+    per_shape = {}
+    # (B, n, zero padding): the TPU kernel's tests' shapes, the batched
+    # path's, and n = 222 padded to 256 as the TPU kernel pads it
+    for B, n, pad in ((3, 128, 0), (2, 222, 0), (128, 222, 0), (3, 256, 0),
+                      (3, 384, 0), (2, 256, 34)):
+        nums = cholesky_solve_numbers(dev, B, n, pad)
+        if not nums["rel_err"] < TOL:
+            raise AssertionError(f"cholesky_solve B={B} n={n} pad={pad}: "
+                                 f"relative error {nums['rel_err']} >= {TOL}")
+        per_shape[(B, n, pad)] = nums
+        phase(f"kernel cholesky_solve B={B} n={n} pad={pad}", t0, **nums)
+    chol = dict(per_shape[(BATCH, 222, 0)])
+    del chol["rel_err"]
+    return {"lane_cholesky_solve[f32]": f32, "lane_cholesky_solve[f64]": f64,
+            "cholesky_solve": chol}
 
 
-def main_path_problem(dev):
-    """The main path's input, as bench.py sets it up: the 10 s simulated
+def batched_problem(dev):
+    """The batched path's input, as bench.py sets it up: the 10 s simulated
     sequence's full-width window (F = 160), BATCH states perturbed from
     numpy seeds 0..BATCH-1, f32 on the card. Returns (states, datas, opts)
     with a leading axis BATCH."""
@@ -199,26 +354,29 @@ def main_path_problem(dev):
 
 
 def count_launches(label, solve, *args):
-    """Run one solve with the launch count set to 0 just before it; the
-    count, read just after, must be one launch per LM iteration."""
+    """Run one solve with the launch counts set to 0 just before it; the
+    f32 kernel's count, read just after, must be one launch per LM
+    iteration, and no other kernel may launch."""
     t0 = time.perf_counter()
-    lc.LAUNCHES = 0
+    reset_counts()
     out = solve(*args)
     torch.cuda.synchronize()
-    launches = lc.LAUNCHES
-    phase(label, t0, iters=ITERS, launches=launches)
-    if launches != ITERS:
-        raise AssertionError(f"{label}: {launches} kernel launches, "
-                             f"want {ITERS}")
-    return out, launches
+    counts = read_counts()
+    phase(label, t0, iters=ITERS, launches=counts)
+    if counts != {"lane_cholesky_solve[f32]": ITERS,
+                  "lane_cholesky_solve[f64]": 0, "cholesky_solve": 0}:
+        raise AssertionError(f"{label}: launches {counts}, want {ITERS} "
+                             f"of lane_cholesky_solve[f32] only")
+    return out, counts
 
 
-def main_path(dev):
+def batched_path(dev):
     """The batched full-width window solve, then the single-window path:
     launches counted, results checked and cross-checked against the CPU,
-    then timed. Returns (launches per path, the batched solve's seconds)."""
-    states, datas, opts = main_path_problem(dev)
-    (st, info), batched_launches = count_launches(
+    then timed. Returns (launches per path, the batched solve's seconds,
+    the problem)."""
+    states, datas, opts = batched_problem(dev)
+    (st, info), batched_counts = count_launches(
         "solve_window_batched", solve_window_batched, states, datas, opts)
     cost0, cost = info.cost0.cpu().numpy(), info.cost.cpu().numpy()
     if not (np.isfinite(cost).all() and (cost <= cost0).all()):
@@ -231,8 +389,8 @@ def main_path(dev):
 
     one_state = fac.map_tensors(lambda x: x[0], states)
     one_data = fac.map_tensors(lambda x: x[0], datas)
-    _, single_launches = count_launches("solve_window", solve_window,
-                                        one_state, one_data, opts)
+    _, single_counts = count_launches("solve_window", solve_window,
+                                      one_state, one_data, opts)
 
     # cross-check windows 0..7: solve_window on the card and
     # solve_window_batched on CPU tensors (the plain version), both f32.
@@ -267,80 +425,241 @@ def main_path(dev):
         solve_window_batched(sts, datas, opts)
         torch.cuda.synchronize()
 
-    batched_s = host_s(batched, 5)
+    batched_s = host_s(batched, 3)
 
     def single(i):
         solve_window(one_state._replace(p=one_state.p + 1e-7 * i), one_data,
                      opts)
         torch.cuda.synchronize()
 
-    latency_ms = host_s(single, 5) * 1e3
+    latency_ms = host_s(single, 3) * 1e3
     phase("timing", t0, windows_solved_per_s=BATCH / batched_s,
           single_window_latency_ms=latency_ms)
-    launches = {"solve_window_batched": batched_launches,
-                "solve_window": single_launches}
-    return launches, batched_s, (states, datas, opts)
+    counts = {"solve_window_batched": batched_counts,
+              "solve_window": single_counts}
+    return counts, batched_s, (states, datas, opts)
 
 
-def profile_solve(problem, batched_s):
-    """One batched solve under torch.profiler. Host time per span (the
-    spans of ops/solver.py, summed over their calls) and the device time of
-    the solve's kernels, all from this one profiled call; the busy share is
-    that device time over the unprofiled solve timed in this run."""
+class FrameClock:
+    """Host time of each input_image call of an estimator made while it was
+    in the NON_LINEAR phase (the frame's fetch of the previous step, host
+    work and dispatch of its own step), with the card synchronised."""
+
+    def __init__(self, est):
+        self.ms = []
+        inner = est.input_image
+
+        def timed(t, feats):
+            streaming = est.solver_flag == est.NON_LINEAR
+            t0 = time.perf_counter()
+            inner(t, feats)
+            torch.cuda.synchronize()
+            if streaming:
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+
+        est.input_image = timed
+
+
+def run_sequence(label, sim_cfg, dev, frames=STREAM_FRAMES):
+    """Replay `frames` camera frames of the sequence at full width on `dev`
+    with the launch counts reset just before; returns (replay output,
+    launches per kernel row, frames per second, median ms per NON_LINEAR
+    frame)."""
+    sim = simulate(sim_cfg)
+    est = E.Estimator(EstimatorConfig(), device=dev)
+    clock = FrameClock(est) if dev.type == "cuda" else None
+    t0 = time.perf_counter()
+    reset_counts()
+    out = replay(sim, est=est, max_frames=frames)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    counts = read_counts()
+    wall = time.perf_counter() - t0
+    fps = frames / wall
+    ms = float(np.median(clock.ms)) if clock and clock.ms else float("nan")
+    st = est.stats
+    phase(label, t0, frames=frames, frames_per_s=fps,
+          median_ms_per_nonlinear_frame=ms, ate_rmse=out["ate_rmse"],
+          drift_pct=out["drift_pct"], keyframes=st["keyframes"],
+          solves=st["solves"], init_solves=st["init_solves"],
+          reboots=st["reboots"], launches=counts)
+    return out, counts, fps, ms
+
+
+def check_launches(label, out, counts):
+    """The f64 kernel launches once per LM iteration of every solve the
+    estimator made (ITERS per streaming solve, INIT_ITERS per
+    initialization solve), and no other kernel launches."""
+    st = out["estimator"].stats
+    want = ITERS * st["solves"] + E.INIT_ITERS * st["init_solves"]
+    if counts != {"lane_cholesky_solve[f32]": 0,
+                  "lane_cholesky_solve[f64]": want, "cholesky_solve": 0}:
+        raise AssertionError(f"{label}: launches {counts}, want {want} of "
+                             f"lane_cholesky_solve[f64] only ({ITERS} x "
+                             f"{st['solves']} solves + {E.INIT_ITERS} x "
+                             f"{st['init_solves']} initialization solves)")
+
+
+def streaming_path(dev):
+    """Sequences A and B of tests/test_estimator_e2e.py at full width on the
+    card with that test's gates, then the first CHECK_FRAMES frames of A on
+    the card and on the CPU. Returns (launches per path, numbers)."""
+    seq_a = SimConfig(duration=3.0, speed=0.5, seed=5)
+    out, counts_a, fps, ms = run_sequence("streaming A", seq_a, dev)
+    est = out["estimator"]
+    check_launches("streaming A", out, counts_a)
+    gates = {"solver_flag == NON_LINEAR": est.solver_flag == est.NON_LINEAR,
+             "solves >= 5": est.stats["solves"] >= 5,
+             "ate_rmse < 0.015": out["ate_rmse"] < 0.015,
+             "drift_pct < 10": out["drift_pct"] < 10.0,
+             "|rho - 0.21| < 0.02": bool(np.all(np.abs(est.rho - 0.21)
+                                                < 0.02))}
+    if not all(gates.values()):
+        raise AssertionError(f"streaming A gates: {gates}")
+    numbers = dict(frames_per_s=fps, median_ms_per_nonlinear_frame=ms,
+                   ate_rmse=out["ate_rmse"], drift_pct=out["drift_pct"],
+                   keyframes=est.stats["keyframes"],
+                   solves=est.stats["solves"],
+                   launches=counts_a["lane_cholesky_solve[f64]"])
+
+    out_b, counts_b, _, _ = run_sequence(
+        "streaming B", SimConfig(duration=3.0, speed=0.15, seed=7), dev)
+    check_launches("streaming B", out_b, counts_b)
+    est_b = out_b["estimator"]
+    gates = {"keyframes < 20": est_b.stats["keyframes"] < STREAM_FRAMES,
+             "ate_rmse < 0.15": out_b["ate_rmse"] < 0.15}
+    if not all(gates.values()):
+        raise AssertionError(f"streaming B gates: {gates}")
+
+    # the first CHECK_FRAMES frames of A, on the card and on the CPU (the
+    # port's plain versions): f64 both, so every discrete decision must
+    # come out the same and positions agree to 1e-6 m
+    t0 = time.perf_counter()
+    card, counts_c, _, _ = run_sequence("streaming A, first frames", seq_a,
+                                        dev, CHECK_FRAMES)
+    check_launches("streaming A, first frames", card, counts_c)
+    cpu, _, _, _ = run_sequence("streaming A, first frames on the CPU", seq_a,
+                                torch.device("cpu"), CHECK_FRAMES)
+    np.testing.assert_array_equal(card["est_t"], cpu["est_t"])
+    np.testing.assert_allclose(card["est_p"], cpu["est_p"], rtol=0,
+                               atol=1e-6, err_msg="card vs CPU est_p")
+    sc, sp = card["estimator"].stats, cpu["estimator"].stats
+    if sc["solves"] != sp["solves"] or sc["keyframes"] != sp["keyframes"]:
+        raise AssertionError(f"card vs CPU counts: {sc} vs {sp}")
+    phase("cross-check streaming vs CPU", t0, frames=CHECK_FRAMES,
+          published=len(cpu["est_t"]), solves=sc["solves"],
+          max_abs_dp=float(np.abs(card["est_p"] - cpu["est_p"]).max()))
+    launches = {"streaming A": counts_a, "streaming B": counts_b}
+    return launches, numbers
+
+
+def profile_spans(label, fn, spans, total):
+    """Run fn() once under torch.profiler; print host ms per span (summed
+    over its calls), the device time of the kernels, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    t0 = time.perf_counter()
-    states, datas, opts = problem
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        solve_window_batched(states, datas, opts)
+        fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    spans = {e.key: e for e in events
-             if e.key in ("lm_solve", "assemble", "solve_step")
-             and e.device_type == torch.autograd.DeviceType.CPU}
-    host_ms = {k: spans[k].cpu_time_total / 1e3 for k in spans}
-    calls = {k: spans[k].count for k in spans}
+    by_key = {e.key: e for e in events
+              if e.key in spans and e.device_type
+              == torch.autograd.DeviceType.CPU}
+    host_ms = {k: by_key[k].cpu_time_total / 1e3 for k in by_key}
+    calls = {k: by_key[k].count for k in by_key}
     # device-side events only, without the spans' own device ranges (the
     # rule torch.profiler's "Self CUDA time total" uses)
     on_device = [e for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and not e.is_user_annotation]
     device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
-    rest = host_ms["lm_solve"] - host_ms["assemble"] - host_ms["solve_step"]
-    print("profile host ms: " + " ".join(
-        f"{k}={host_ms[k]:.3f} ({calls[k]} calls)"
-        for k in ("lm_solve", "assemble", "solve_step"))
-        + f" rest={rest:.3f}")
-    print(f"profile device: kernel_ms={device_ms:.3f} "
+    print(f"profile {label} host ms: " + " ".join(
+        f"{k}={host_ms.get(k, 0.0):.3f} ({calls.get(k, 0)} calls)"
+        for k in spans))
+    print(f"profile {label} device: kernel_ms={device_ms:.3f} "
           f"kernels={sum(e.count for e in on_device)} "
-          f"busy_share_profiled={device_ms / host_ms['lm_solve']:.4f} "
-          f"busy_share_unprofiled={device_ms / (batched_s * 1e3):.4f} "
+          f"busy_share_profiled={device_ms / host_ms[total]:.4f}")
+    print(events.table(sort_by="self_device_time_total", row_limit=8,
+                       max_name_column_width=50))
+    print(events.table(sort_by="self_cpu_time_total", row_limit=8,
+                       max_name_column_width=50))
+    return host_ms, device_ms
+
+
+def profile_runs(problem, batched_s, dev):
+    """One batched solve, then one streaming step (mode 'old', the first
+    step of a short full-width replay, with the fold of interval 9), each
+    under torch.profiler; the step is also timed unprofiled."""
+    t0 = time.perf_counter()
+    states, datas, opts = problem
+    _, device_ms = profile_spans(
+        "batched", lambda: solve_window_batched(states, datas, opts),
+        ("lm_solve", "assemble", "solve_step"), "lm_solve")
+    print(f"profile batched: busy_share_unprofiled="
+          f"{device_ms / (batched_s * 1e3):.4f} "
           f"(unprofiled solve {batched_s * 1e3:.3f} ms)")
-    print(events.table(sort_by="self_device_time_total", row_limit=10,
-                       max_name_column_width=50))
-    print(events.table(sort_by="self_cpu_time_total", row_limit=10,
-                       max_name_column_width=50))
+
+    rec = {}
+    step = E._streaming_step
+
+    def spy(*args, **kw):
+        rec.setdefault("call", (args, kw))
+        return step(*args, **kw)
+
+    E._streaming_step = spy
+    try:
+        replay(simulate(SimConfig(duration=3.0, speed=0.5, seed=5)),
+               est=E.Estimator(EstimatorConfig(), device=dev), max_frames=12)
+    finally:
+        E._streaming_step = step
+    args, kw = rec["call"]
+
+    def one_step():
+        out = step(*args, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    one_step()
+    step_s = host_s(lambda i: one_step(), 3)
+    spans = ("preint_fold", "build_window_data", "lm_solve", "assemble",
+             "solve_step", "reproj_gate", "marginalize")
+    host_ms, device_ms = profile_spans("streaming step", one_step, spans,
+                                       "lm_solve")
+    print(f"profile streaming step: unprofiled {step_s * 1e3:.3f} ms, "
+          f"busy_share_unprofiled={device_ms / (step_s * 1e3):.4f}")
     phase("profile", t0)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one batched solve")
+                        help="also profile one batched solve and one "
+                             "streaming step")
     args = parser.parse_args()
     dev, smi = environment()
     build()
-    numbers = check_kernel(dev)
-    launches, batched_s, problem = main_path(dev)
+    numbers = check_kernels(dev)
+    launches, batched_s, problem = batched_path(dev)
+    stream_launches, stream = streaming_path(dev)
+    launches.update(stream_launches)
+    print("streaming: " + json.dumps(stream))
     if args.profile:
-        profile_solve(problem, batched_s)
+        profile_runs(problem, batched_s, dev)
     print("kernels: " + " ".join(
-        f"{KERNEL['name']}={c} ({path})" for path, c in launches.items()))
-    row = dict(KERNEL, launches=launches["solve_window_batched"],
-               launches_solve_window=launches["solve_window"], **numbers)
+        f"{name}={counts[name]} ({path})"
+        for name, _ in KERNELS for path, counts in launches.items()))
+    main_path = {"lane_cholesky_solve[f32]": "solve_window_batched",
+                 "lane_cholesky_solve[f64]": "streaming A",
+                 "cholesky_solve": "solve_window_batched"}
+    rows = []
+    for (name, dtype), meta in KERNELS.items():
+        rows.append(dict(
+            name=name, **meta, launches=launches[main_path[name]][name],
+            launches_by_path={p: c[name] for p, c in launches.items()},
+            **numbers[name]))
     print(smi)
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
-"""The port on the card, what chip_smoke.py does not check: the kernel's
-wrapper refuses what the kernel does not take, and the LM loop never waits
-for the device. (chip_smoke.py holds the kernel to its plain version and the
-card's solve to the CPU's.) Every test here needs a CUDA device and skips
-without one.
+"""The port on the card, what chip_smoke.py does not check: the kernels'
+wrappers refuse what the kernels do not take, and neither the LM loop nor
+the streaming estimator's per-frame step ever waits for the device.
+(chip_smoke.py holds the kernels to their plain versions and the card's
+solve and replay to the CPU's.) Every test here needs a CUDA device and
+skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is missing (tests/conftest.py imports JAX; skip it there):
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from cerberus_tpu_torch.ops import cholesky_solve as cs
 from cerberus_tpu_torch.ops import lane_cholesky as lc
 
 pytestmark = pytest.mark.cuda
@@ -39,13 +41,42 @@ def _spd(seed, B, n, device):
 def test_kernel_rejects_what_it_does_not_take(cuda):
     A, b = _spd(3, 2, 8, cuda)
     with pytest.raises(TypeError):
-        lc.lane_cholesky_solve(A.double(), b.double())
+        lc.lane_cholesky_solve(A.half(), b.half())
+    with pytest.raises(TypeError):
+        lc.lane_cholesky_solve(A.double(), b)       # mixed dtypes
     with pytest.raises(ValueError):
         lc.lane_cholesky_solve(A.transpose(1, 2), b)
-    n = 241                                 # factor above 227 KB
     with pytest.raises(ValueError):
-        lc.lane_cholesky_solve(torch.eye(n, device=cuda)[None],
-                               torch.ones((1, n), device=cuda))
+        lc.lane_cholesky_solve(A, b[:, :5])
+    for n, dtype in ((241, torch.float32),          # factor above 227 KB
+                     (239, torch.float64)):         # packed f64 triangle too
+        with pytest.raises(ValueError):
+            lc.lane_cholesky_solve(
+                torch.eye(n, dtype=dtype, device=cuda)[None],
+                torch.ones((1, n), dtype=dtype, device=cuda))
+    x = lc.lane_cholesky_solve(                     # the largest f64 n
+        torch.eye(238, dtype=torch.float64, device=cuda)[None],
+        torch.ones((1, 238), dtype=torch.float64, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.ones_like(x))
+
+
+def test_cholesky_solve_rejects_what_it_does_not_take(cuda):
+    A, b = _spd(4, 2, 8, cuda)
+    with pytest.raises(TypeError):
+        cs.cholesky_solve(A.half(), b.half(), 1e-4)
+    with pytest.raises(TypeError):
+        cs.cholesky_solve(A.double(), b, 1e-4)     # mixed dtypes
+    with pytest.raises(TypeError):
+        cs.cholesky_solve(A.double(), b.double(), 1e-4)   # f32 only
+    with pytest.raises(ValueError):
+        cs.cholesky_solve(A.transpose(1, 2), b, 1e-4)
+    with pytest.raises(ValueError):
+        cs.cholesky_solve(A, b[:, :5], 1e-4)
+    with pytest.raises(ValueError):
+        cs.cholesky_solve(A, b, torch.ones(3, device=cuda))
+    with pytest.raises(ValueError):
+        cs.cholesky_solve(A, b.cpu(), 1e-4)
 
 
 @pytest.fixture
@@ -84,3 +115,53 @@ def test_lm_loop_never_waits_for_the_device(small_batch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+def test_streaming_step_never_waits_for_the_device(cuda):
+    """One per-frame step of the streaming estimator (preintegration fold,
+    window build, LM solve, reprojection gate, QR marginalization, prior
+    shift, splice re-preintegration) under CUDA's sync debug mode, in both
+    marginalization modes, with its inputs already on the card. (A first
+    call per mode has made the per-device constants.)"""
+    import dataclasses
+
+    from cerberus_tpu_torch.config import EstimatorConfig
+    from cerberus_tpu_torch.data.replay import replay
+    from cerberus_tpu_torch.data.simulator import SimConfig, simulate
+    from cerberus_tpu_torch.estimator import estimator as E
+
+    rec = {}
+    step = E._streaming_step
+
+    def spy(*args, **kw):
+        if "args" not in rec:
+            est = rec["est"]
+            rec["args"] = args
+            rec["raw8"] = est._dev_raw(est._pad_buffer(
+                E._merge_buffers(est.buffers[8], est.buffers[9])))
+        return step(*args, **kw)
+
+    cfg = dataclasses.replace(EstimatorConfig(), max_features=32,
+                              max_num_iterations=2)
+    rec["est"] = est = E.Estimator(cfg, device=cuda)
+    E._streaming_step = spy
+    try:
+        replay(simulate(SimConfig(duration=1.6, speed=0.5, seed=5)), est=est,
+               max_frames=12)
+    finally:
+        E._streaming_step = step
+    args = list(rec["args"])
+    for mode in ("old", "new"):
+        args[9] = rec["raw8"] if mode == "new" else None   # the splice
+        kw = dict(max_iters=2, mode=mode, use_leg_odom=True,
+                  marg_td_info=False)
+        E._streaming_step(*args, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = E._streaming_step(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert torch.isfinite(out["st"].p).all()
+        assert torch.isfinite(out["prior"][0]).all()

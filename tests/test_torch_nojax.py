@@ -37,6 +37,15 @@ NO_JAX_SCRIPT = textwrap.dedent("""
     datas = fac.map_tensors(lambda x: x.expand((B,) + x.shape), data)
     st, info = solve_window_batched(states, datas, SolveOptions(max_iters=1))
     assert torch.isfinite(info.cost).all() and (info.cost <= info.cost0).all()
+    from cerberus_tpu_torch.data.replay import replay
+    from cerberus_tpu_torch.estimator.estimator import Estimator
+    from cerberus_tpu_torch.ops.cholesky_solve import cholesky_solve
+    out = replay(sim, max_frames=2, device="cpu")
+    assert out["estimator"].frame_count == 2
+    assert out["estimator"].solver_flag == Estimator.INITIAL
+    H = torch.eye(3, dtype=torch.float64)[None] * 2.0
+    x = cholesky_solve(H, torch.ones((1, 3), dtype=torch.float64), 0.0)
+    assert torch.allclose(x, torch.full((1, 3), -0.5, dtype=torch.float64))
     assert not any(name == "jax" or name.startswith(("jax.", "jaxlib"))
                    or name.startswith("cerberus_tpu.")
                    for name, mod in sys.modules.items() if mod is not None)
@@ -80,4 +89,10 @@ def test_entry_points_default_to_cuda():
     st_np, _ = convert.window_to_numpy(st, st)
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.window_from_numpy(st_np, None)
+    from cerberus_tpu_torch.data.replay import replay
+    from cerberus_tpu_torch.estimator.estimator import Estimator
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Estimator()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replay({"t": np.zeros(1)})
     assert resolve_device("cpu") == torch.device("cpu")

@@ -17,14 +17,19 @@ def to_port(state, data, dtype=torch.float64):
                                      device="cpu", dtype=dtype)
 
 
-def np_tree(nt):
-    """Flatten a (port or JAX) window NamedTuple to {path: numpy array}."""
+def np_tree(nt, prefix=""):
+    """Flatten a (port or JAX) NamedTuple, dict or tuple, nested, to
+    {path: numpy array}."""
+    if isinstance(nt, dict):
+        items = nt.items()
+    elif isinstance(nt, tuple):
+        items = zip(getattr(nt, "_fields", range(len(nt))), nt)
+    else:
+        return {prefix: np.asarray(nt.detach().cpu() if torch.is_tensor(nt)
+                                   else nt)}
     out = {}
-    for name, x in zip(nt._fields, nt):
-        if isinstance(x, tuple):
-            out.update({f"{name}.{k}": v for k, v in np_tree(x).items()})
-        else:
-            out[name] = np.asarray(x.detach().cpu() if torch.is_tensor(x) else x)
+    for k, v in items:
+        out.update(np_tree(v, f"{prefix}.{k}" if prefix else str(k)))
     return out
 
 
