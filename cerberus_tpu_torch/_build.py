@@ -4,7 +4,9 @@ A source `csrc/<name>.cu` becomes a shared library with a plain C
 interface, `build/cerberus_tpu_torch/lib<name>-<hash>.so` beside the
 package, where <hash> covers the source, the headers `csrc/*.cuh` it may
 include and the flags: an edited source or header builds anew on first
-use, an unchanged one is loaded as it is.
+use, an unchanged one is loaded as it is. What `nvcc` printed (with
+`-Xptxas -v`: each kernel's registers, shared memory and spills) is kept
+beside the library as `lib<name>-<hash>.log`.
 `torch.utils.cpp_extension` is not used: a source that includes PyTorch's
 headers takes minutes to compile, a plain C one seconds.
 """
@@ -21,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cerberus_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -47,8 +49,15 @@ def build(name: str) -> Path:
                              text=True)
         if out.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{out.stdout}")
+        lib.with_suffix(".log").write_text(out.stdout)
         os.replace(tmp, lib)
     return lib
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed when it built csrc/<name>.cu (built first if
+    needed)."""
+    return build(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

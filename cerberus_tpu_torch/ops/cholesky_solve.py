@@ -4,11 +4,12 @@ Port of `cerberus_tpu/ops/pallas_kernels.py::cholesky_solve`. The damping is
 not Jacobi-equilibrated (unlike `ops/solver._damped_solve_schur`), exactly
 as in the JAX function. On a CUDA tensor `cholesky_solve` launches the
 hand-written kernel `csrc/cholesky_solve.cu` (f32, the type the TPU
-kernel's tests use; one thread block per system, the damped lower triangle
-in a global workspace, so any n; the source says what bounds it). On a CPU
-tensor it runs `cholesky_solve_plain`, the same function in plain torch
-ops. There is no fallback from the card to the plain version: a CUDA
-tensor the kernel does not take raises.
+kernel's tests use; one thread block per system, a blocked factor in tiles,
+in shared memory up to n = 320 and streamed from a global workspace above,
+so any n; the source says what bounds it). On a CPU tensor it runs
+`cholesky_solve_plain`, the same function in plain torch ops. There is no
+fallback from the card to the plain version: a CUDA tensor the kernel does
+not take raises.
 
 No path of the port calls it, as no path of the JAX package calls the TPU
 kernel; `LAUNCHES` counts its launches all the same.
@@ -21,7 +22,8 @@ import ctypes
 import torch
 
 from cerberus_tpu_torch import _build
-from cerberus_tpu_torch.ops.lane_cholesky import lane_cholesky_solve_plain
+from cerberus_tpu_torch.ops.lane_cholesky import (lane_cholesky_solve_plain,
+                                                  launch_args)
 
 LAUNCHES = 0
 
@@ -33,7 +35,7 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("cholesky_solve")
         fn = lib.damped_cholesky_solve_f32
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.damped_cholesky_error_string.argtypes = [ctypes.c_int]
@@ -52,9 +54,10 @@ def cholesky_solve(H: torch.Tensor, b: torch.Tensor, lam) -> torch.Tensor:
     """x = -(H + diag(lam diag(H) + 1e-12))^-1 b for B SPD systems.
 
     H: (B, n, n), b: (B, n), lam: (B,) or a scalar. CUDA tensors: f32,
-    contiguous, any n; the kernel is launched on the current stream without
-    synchronising. CPU tensors: any float dtype, through the plain
-    version."""
+    contiguous, any n whose two vectors fit a block's shared memory
+    (`lane_cholesky.tile_plan`); the kernel is launched on the current
+    stream without synchronising. CPU tensors: any float dtype, through
+    the plain version."""
     if H.ndim != 3 or H.shape[1] != H.shape[2] or tuple(b.shape) != tuple(H.shape[:2]):
         raise ValueError(f"want H (B, n, n) and b (B, n), got {tuple(H.shape)} "
                          f"and {tuple(b.shape)}")
@@ -73,12 +76,13 @@ def cholesky_solve(H: torch.Tensor, b: torch.Tensor, lam) -> torch.Tensor:
     if not (H.is_contiguous() and b.is_contiguous()):
         raise ValueError("the kernel takes contiguous H and b")
     Bn, n = b.shape
+    work, plan = launch_args(n, H.dtype, Bn, H.device)
     x = torch.empty_like(b)
-    work = torch.empty((Bn, n * (n + 1) // 2), dtype=H.dtype, device=H.device)
     lib = _library()
     err = lib.damped_cholesky_solve_f32(
         H.data_ptr(), b.data_ptr(), lam.data_ptr(), x.data_ptr(),
-        work.data_ptr(), Bn, n, H.device.index,
+        None if work is None else work.data_ptr(), Bn, n, *plan,
+        H.device.index,
         torch.cuda.current_stream(H.device).cuda_stream)
     if err != 0:
         raise RuntimeError("cholesky_solve launch failed: "

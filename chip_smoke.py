@@ -7,13 +7,16 @@ Phases, each printed with its elapsed seconds:
   1. environment: torch and CUDA versions, the card's name and power limit;
      fails without a CUDA device (there is no CPU fallback);
   2. build: the kernel sources cerberus_tpu_torch/csrc/*.cu, one nvcc each,
-     all started together, into build/cerberus_tpu_torch/;
+     all started together, into build/cerberus_tpu_torch/, with each
+     kernel's registers, shared memory and spills as ptxas reports them;
   3. kernels: each kernel against its plain torch version on the card at
-     several shapes and at its paths' shapes, timed with CUDA events beside
-     its plain version, one library call computing the same function, and
-     the least time the card could take:
-       - lane_cholesky_solve f32 (the batched solve's) and f64 (the
-         streaming estimator's, a packed-triangle factor);
+     tile-aligned and ragged n, resident and streamed tiles, and a batch
+     with one system that is not SPD (its x NaN, the others as alone); then
+     at its paths' shapes, timed with CUDA events beside its plain version,
+     one library call computing the same function, and the least time the
+     card could take (cuda_ms says how):
+       - lane_cholesky_solve f32 (the batched solve's and solve_window's)
+         and f64 (the streaming estimator's);
        - cholesky_solve, f32 (on no path of the port, as its TPU original);
   4. batched path: the batched full-width window solve — 128 windows of the
      10 s simulated sequence (11 frames, F = 160, 222-dim reduced system),
@@ -44,6 +47,7 @@ import argparse  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
+import re  # noqa: E402
 from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -72,6 +76,10 @@ ITERS = 12           # LM iterations (reference max_num_iterations)
 CHECK_WINDOWS = 8    # windows cross-checked against the CPU
 TOL = 2e-3           # f32 kernels vs plain, max |dx| / max |x|
 TOL_F64 = 1e-10      # f64 kernel vs plain, max |dx| / max |x|
+LANE_N = {torch.float32: (1, 16, 31, 33, 37, 222, 238, 240, 241, 321, 384),
+          torch.float64: (1, 16, 31, 33, 37, 222, 224, 225, 238, 239)}
+LANE_B = (1, 2, 128, 130)
+TIMED_CALLS = 50     # kernel or library calls between one event pair
 STREAM_FRAMES = 20   # camera frames per streaming sequence
 CHECK_FRAMES = 14    # frames of sequence A cross-checked against the CPU
 
@@ -98,12 +106,11 @@ def spd(seed, B, n, device, dtype=torch.float32):
     """SPD systems as tests/test_lane_cholesky.py makes them."""
     rng = np.random.default_rng(seed)
     J = rng.normal(size=(B, n + 5, n))
-    A = np.einsum("bij,bik->bjk", J, J) + 0.5 * np.eye(n)
+    A = np.swapaxes(J, 1, 2) @ J + 0.5 * np.eye(n)      # J^T J
     b = rng.normal(size=(B, n))
     if dtype == torch.float32:     # made in f32, as that test makes them
         J32 = J.astype(np.float32)
-        A = (np.einsum("bij,bik->bjk", J32, J32)
-             + 0.5 * np.eye(n, dtype=np.float32))
+        A = np.swapaxes(J32, 1, 2) @ J32 + 0.5 * np.eye(n, dtype=np.float32)
     return (torch.as_tensor(A, dtype=dtype, device=device),
             torch.as_tensor(b, dtype=dtype, device=device))
 
@@ -117,7 +124,7 @@ def spd_pallas(seed, B, n, device, pad=0):
     keeps those pivots nonzero. Returns (H, b, lam)."""
     rng = np.random.default_rng(seed)
     A = rng.normal(size=(B, n, n)).astype(np.float32)
-    H = np.einsum("bij,bkj->bik", A, A) + n * np.eye(n, dtype=np.float32)
+    H = A @ np.swapaxes(A, 1, 2) + n * np.eye(n, dtype=np.float32)  # A A^T
     b = rng.normal(size=(B, n)).astype(np.float32)
     if pad:
         H[:, n - pad:, :] = 0.0
@@ -127,8 +134,54 @@ def spd_pallas(seed, B, n, device, pad=0):
     return tuple(torch.as_tensor(a, device=device) for a in (H, b, lam))
 
 
-def cuda_ms(fn, reps):
-    """Median device time of fn() over reps, with CUDA events."""
+_SLEEP_CYCLES_PER_MS = []
+
+
+def device_sleep(ms):
+    """Hold the current stream busy for about ms (torch.cuda._sleep spins a
+    kernel for a count of clock cycles, calibrated here once)."""
+    if not _SLEEP_CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(10 ** 7 / start.elapsed_time(end))
+    torch.cuda._sleep(int(ms * _SLEEP_CYCLES_PER_MS[0]))
+
+
+def cuda_ms(fn, calls=TIMED_CALLS, reps=5):
+    """Device time of one fn() call: the median over reps of `calls` calls
+    made back to back between one pair of CUDA events, over calls. Each rep
+    queues its calls behind a device-side sleep longer than their enqueue
+    takes, so the device runs them without waiting for the host, and the
+    host's time per call (Python checks, ctypes, allocation) is not
+    counted. Returns (ms per call, host ms per call to enqueue)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        device_sleep(2 * host_ms + 1)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times)), host_ms / calls
+
+
+def one_call_ms(fn, reps=20):
+    """The earlier way to time a kernel: the median over reps of one
+    call between a pair of CUDA events, host enqueue included."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -203,6 +256,12 @@ def build():
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(_build.build, names))
     phase("build", t0, libraries=",".join(lib.name for lib in libs))
+    # ptxas -v: registers, static shared memory and spills of each kernel
+    # (its dynamic shared memory is the tile plan's, printed per shape)
+    for name in names:
+        for line in _build.build_log(name).splitlines():
+            if re.search(r"Compiling entry|registers|spill|smem", line):
+                print(f"ptxas {name}: {line.strip()}")
 
 
 def lane_numbers(dev, dtype, B, n):
@@ -221,12 +280,23 @@ def lane_numbers(dev, dtype, B, n):
     bound_ms, bound_by = bound(
         es * (B * n * (n + 1) // 2 + 2 * B * n), B * (n ** 3 / 3 + 2 * n * n),
         F64_FLOP_PER_S if dtype == torch.float64 else F32_FLOP_PER_S)
-    return dict(
-        max_abs_err=float((x - xp).abs().max()),
-        ms=cuda_ms(lambda: lc.lane_cholesky_solve(A, b), 50),
-        plain_ms=cuda_ms(lambda: lc.lane_cholesky_solve_plain(A, b), 5),
-        bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=cuda_ms(library, 20), shape=[B, n])
+    return timed(dict(max_abs_err=float((x - xp).abs().max()),
+                      bound_ms=bound_ms, bound_by=bound_by, shape=[B, n],
+                      plan=lc.tile_plan(n, dtype)._asdict()),
+                 lambda: lc.lane_cholesky_solve(A, b),
+                 lambda: lc.lane_cholesky_solve_plain(A, b), library)
+
+
+def timed(nums, kernel, plain, library):
+    """nums with the kernel's, the plain version's and the library call's
+    times (cuda_ms), the kernel's host enqueue time per call, its time
+    taken one call at a time (one_call_ms) and its share of its bound."""
+    ms, enqueue_ms = cuda_ms(kernel)
+    nums.update(ms=ms, plain_ms=cuda_ms(plain, calls=2, reps=3)[0],
+                library_ms=cuda_ms(library)[0], enqueue_ms=enqueue_ms,
+                one_call_ms=one_call_ms(kernel),
+                bound_share=nums["bound_ms"] / ms)
+    return nums
 
 
 def damping_is_seen(H, b, lam, xp, pad):
@@ -249,8 +319,9 @@ def damping_is_seen(H, b, lam, xp, pad):
                                  "without the 1e-12 term")
 
 
-def cholesky_solve_numbers(dev, B, n, pad=0):
-    """Error, times and bound of cholesky_solve at (B, n), f32."""
+def cholesky_solve_numbers(dev, B, n, pad=0, time_it=True):
+    """Error, times and bound of cholesky_solve at (B, n), f32 (no times
+    unless time_it)."""
     H, b, lam = spd_pallas(900 + n + B, B, n, dev, pad)
     x = cs.cholesky_solve(H, b, lam)
     xp = cs.cholesky_solve_plain(H, b, lam)
@@ -267,38 +338,61 @@ def cholesky_solve_numbers(dev, B, n, pad=0):
     bound_ms, bound_by = bound(
         4 * (B * n * (n + 1) // 2 + 2 * B * n + B),
         B * (n ** 3 / 3 + 2 * n * n + 2 * n), F32_FLOP_PER_S)
-    return dict(
-        max_abs_err=float((x - xp).abs().max()), rel_err=rel_err(x, xp),
-        ms=cuda_ms(lambda: cs.cholesky_solve(H, b, lam), 50),
-        plain_ms=cuda_ms(lambda: cs.cholesky_solve_plain(H, b, lam), 5),
-        bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=cuda_ms(library, 20), shape=[B, n])
+    nums = dict(max_abs_err=float((x - xp).abs().max()),
+                rel_err=rel_err(x, xp), bound_ms=bound_ms, bound_by=bound_by,
+                shape=[B, n], plan=lc.tile_plan(n, torch.float32)._asdict())
+    if not time_it:
+        return nums
+    return timed(nums, lambda: cs.cholesky_solve(H, b, lam),
+                 lambda: cs.cholesky_solve_plain(H, b, lam), library)
+
+
+def check_lane(dev, dtype, tol):
+    """lane_cholesky_solve against its plain version at every n of
+    LANE_N[dtype] and B of LANE_B, then on a batch whose middle system is
+    not SPD: its x must hold NaN, as the plain version's does, and the
+    others must agree as before."""
+    label = "f32" if dtype == torch.float32 else "f64"
+    worst = 0.0
+    for n in LANE_N[dtype]:
+        for B in LANE_B:
+            A, b = spd(1000 * n + B, B, n, dev, dtype)
+            err = rel_err(lc.lane_cholesky_solve(A, b),
+                          lc.lane_cholesky_solve_plain(A, b))
+            if not err < tol:
+                raise AssertionError(f"lane_cholesky_solve {label} n={n} "
+                                     f"B={B}: relative error {err} >= {tol}")
+            worst = max(worst, err)
+    for n in (37, 222):
+        A, b = spd(3000 + n, 3, n, dev, dtype)
+        A[1, n // 2, n // 2] = -1.0
+        x, xp = lc.lane_cholesky_solve(A, b), lc.lane_cholesky_solve_plain(A, b)
+        if not (torch.isnan(x[1]).any() and torch.isnan(xp[1]).any()):
+            raise AssertionError(f"lane_cholesky_solve {label} n={n}: a "
+                                 f"system that is not SPD gave no NaN")
+        err = rel_err(x[[0, 2]], xp[[0, 2]])
+        if not err < tol:
+            raise AssertionError(f"lane_cholesky_solve {label} n={n}: beside "
+                                 f"a system not SPD, relative error {err}")
+    return worst
 
 
 def check_kernels(dev):
     """Every kernel against its plain version at several shapes, then its
     numbers at its paths' shapes. Returns {row name: numbers}."""
     t0 = time.perf_counter()
-    for n in (16, 37, 222):
-        for B in (1, 64, 128, 130):
-            A, b = spd(1000 * n + B, B, n, dev)
-            err = rel_err(lc.lane_cholesky_solve(A, b),
-                          lc.lane_cholesky_solve_plain(A, b))
-            if not err < TOL:
-                raise AssertionError(f"lane_cholesky_solve f32 n={n} B={B}: "
-                                     f"relative error {err} >= {TOL}")
+    worst = check_lane(dev, torch.float32, TOL)
+    phase("kernel lane_cholesky_solve[f32] checks", t0, max_rel_err=worst,
+          n=list(LANE_N[torch.float32]), B=list(LANE_B))
     f32 = lane_numbers(dev, torch.float32, BATCH, 222)
     phase("kernel lane_cholesky_solve[f32]", t0, **f32)
+    f32_single = lane_numbers(dev, torch.float32, 1, 222)
+    phase("kernel lane_cholesky_solve[f32] at B=1", t0, **f32_single)
 
     t0 = time.perf_counter()
-    for n in (16, 37, 222, 238):
-        for B in (1, 128):
-            A, b = spd(2000 * n + B, B, n, dev, torch.float64)
-            err = rel_err(lc.lane_cholesky_solve(A, b),
-                          lc.lane_cholesky_solve_plain(A, b))
-            if not err < TOL_F64:
-                raise AssertionError(f"lane_cholesky_solve f64 n={n} B={B}: "
-                                     f"relative error {err} >= {TOL_F64}")
+    worst = check_lane(dev, torch.float64, TOL_F64)
+    phase("kernel lane_cholesky_solve[f64] checks", t0, max_rel_err=worst,
+          n=list(LANE_N[torch.float64]), B=list(LANE_B))
     f64 = lane_numbers(dev, torch.float64, 1, 222)
     phase("kernel lane_cholesky_solve[f64]", t0, **f64)
     f64_batch = lane_numbers(dev, torch.float64, BATCH, 222)
@@ -307,10 +401,13 @@ def check_kernels(dev):
     t0 = time.perf_counter()
     per_shape = {}
     # (B, n, zero padding): the TPU kernel's tests' shapes, the batched
-    # path's, and n = 222 padded to 256 as the TPU kernel pads it
+    # path's, n = 222 padded to 256 as the TPU kernel pads it, n either side
+    # of 384 (streamed tiles), and n = 1800 (its panel too large for shared
+    # memory; checked, not timed)
     for B, n, pad in ((3, 128, 0), (2, 222, 0), (128, 222, 0), (3, 256, 0),
-                      (3, 384, 0), (2, 256, 34)):
-        nums = cholesky_solve_numbers(dev, B, n, pad)
+                      (3, 384, 0), (2, 256, 34), (3, 383, 0), (3, 385, 0),
+                      (2, 1800, 0)):
+        nums = cholesky_solve_numbers(dev, B, n, pad, time_it=n < 1000)
         if not nums["rel_err"] < TOL:
             raise AssertionError(f"cholesky_solve B={B} n={n} pad={pad}: "
                                  f"relative error {nums['rel_err']} >= {TOL}")

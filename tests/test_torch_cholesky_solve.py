@@ -19,6 +19,7 @@ import torch
 from cerberus_tpu.ops.pallas_kernels import cholesky_solve as pallas_solve
 from cerberus_tpu_torch.ops.cholesky_solve import (cholesky_solve,
                                                    cholesky_solve_plain)
+from cerberus_tpu_torch.ops.lane_cholesky import SMEM_LIMIT, tile_plan
 from torch_port_util import assert_close, assert_rel
 
 
@@ -70,3 +71,28 @@ def test_rejects_bad_shapes():
     with pytest.raises(ValueError):
         cholesky_solve(H, torch.ones(2, 4, dtype=torch.float64),
                        torch.ones(3, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("n,resident,smem", [
+    (128, True, 10 * 4096 + 2 * 128 * 4),
+    (222, True, 28 * 4096 + 2 * 224 * 4),
+    (256, True, 36 * 4096 + 2 * 256 * 4),
+    (383, False, 2 * 12 * 4096 + 2 * 384 * 4),
+    (384, False, 2 * 12 * 4096 + 2 * 384 * 4),
+    (385, False, 2 * 13 * 4096 + 2 * 416 * 4),
+])
+def test_tile_plan_of_the_kernel_shapes(n, resident, smem):
+    """The layout of the kernel at the TPU kernel's tested shapes and at
+    n = 383, 385: 32-wide f32 tiles, resident in shared memory up to
+    n = 320, else the triangle streamed from a workspace (nt(nt+1)/2 tiles
+    of 4 KB: 319,488 B at n = 384, over a block's limit) with two panels in
+    shared memory."""
+    p = tile_plan(n, torch.float32)
+    nt = -(-n // 32)
+    assert (p.nb, p.n_pad, p.resident, p.smem_bytes) == (32, 32 * nt,
+                                                          resident, smem)
+    assert p.panel_in_smem == (not resident)
+    assert p.smem_bytes <= SMEM_LIMIT
+    tri_bytes = nt * (nt + 1) // 2 * 4096
+    assert (tri_bytes + 2 * nt * 32 * 4 <= SMEM_LIMIT) == resident
+    assert p.work_elems == (0 if resident else tri_bytes // 4)

@@ -48,17 +48,75 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         lc.lane_cholesky_solve(A.transpose(1, 2), b)
     with pytest.raises(ValueError):
         lc.lane_cholesky_solve(A, b[:, :5])
-    for n, dtype in ((241, torch.float32),          # factor above 227 KB
-                     (239, torch.float64)):         # packed f64 triangle too
-        with pytest.raises(ValueError):
-            lc.lane_cholesky_solve(
-                torch.eye(n, dtype=dtype, device=cuda)[None],
-                torch.ones((1, n), dtype=dtype, device=cuda))
     x = lc.lane_cholesky_solve(                     # the largest f64 n
         torch.eye(238, dtype=torch.float64, device=cuda)[None],
         torch.ones((1, 238), dtype=torch.float64, device=cuda))
     torch.cuda.synchronize()
     assert torch.equal(x, torch.ones_like(x))
+
+
+def _rel_err(x, ref):
+    return float((x - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("n,dtype", [(241, torch.float32),
+                                     (239, torch.float64)])
+def test_kernel_solves_above_the_old_limits(cuda, n, dtype):
+    """The first n the column kernel refused (its factor or packed triangle
+    over 227 KB) now solves: f32 n = 241 resident in tiles, f64 n = 239
+    streamed from the workspace. Gates: f32 2e-3, f64 1e-10 relative."""
+    A, b = _spd(5, 2, n, cuda)
+    A, b = A.to(dtype), b.to(dtype)
+    err = _rel_err(lc.lane_cholesky_solve(A, b),
+                   lc.lane_cholesky_solve_plain(A, b))
+    assert err < (2e-3 if dtype == torch.float32 else 1e-10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 16, 31, 33, 37, 222, 238, 240, 321])
+@pytest.mark.parametrize("B", [1, 2, 130])
+def test_kernel_matches_plain(cuda, dtype, n, B):
+    """Tile-aligned and ragged n, resident and streamed tiles, against the
+    plain version (f32 2e-3, f64 1e-10 relative)."""
+    A, b = _spd(100 * n + B, B, n, cuda)
+    A, b = A.to(dtype), b.to(dtype)
+    err = _rel_err(lc.lane_cholesky_solve(A, b),
+                   lc.lane_cholesky_solve_plain(A, b))
+    assert err < (2e-3 if dtype == torch.float32 else 1e-10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [37, 222, 238])
+def test_kernel_not_spd_gives_nan_alone(cuda, dtype, n):
+    """A system that is not SPD gives NaN in its x, as the plain version and
+    LAPACK do; the other systems of the batch are solved as alone."""
+    A, b = _spd(7 * n, 3, n, cuda)
+    A, b = A.to(dtype), b.to(dtype)
+    A[1, n // 2, n // 2] = -1.0
+    x = lc.lane_cholesky_solve(A, b)
+    xp = lc.lane_cholesky_solve_plain(A, b)
+    assert torch.isnan(x[1]).any() and torch.isnan(xp[1]).any()
+    keep = [0, 2]
+    assert _rel_err(x[keep], xp[keep]) < (2e-3 if dtype == torch.float32
+                                          else 1e-10)
+
+
+@pytest.mark.parametrize("B,n", [(3, 383), (3, 385), (1, 1800)])
+def test_cholesky_solve_streamed_matches_plain(cuda, B, n):
+    """The damped kernel with its tiles streamed from the workspace: the
+    panel in shared memory (n = 383, 385), and in global memory too
+    (n = 1800); SPD systems as tests/test_pallas_kernels.py makes them."""
+    rng = np.random.default_rng(n)
+    M = rng.normal(size=(B, n, n)).astype(np.float32)
+    H = np.einsum("bij,bkj->bik", M, M) + n * np.eye(n, dtype=np.float32)
+    H = torch.as_tensor(H, device=cuda)
+    b = torch.as_tensor(rng.normal(size=(B, n)).astype(np.float32),
+                        device=cuda)
+    lam = torch.as_tensor(np.geomspace(1e-3, 1e-1, B).astype(np.float32),
+                          device=cuda)
+    err = _rel_err(cs.cholesky_solve(H, b, lam),
+                   cs.cholesky_solve_plain(H, b, lam))
+    assert err < 2e-3
 
 
 def test_cholesky_solve_rejects_what_it_does_not_take(cuda):

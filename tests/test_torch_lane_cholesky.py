@@ -76,5 +76,62 @@ def test_wrapper_rejects_bad_shapes(shapes):
 
 
 def test_smem_limit_bounds_n():
-    assert tlc.smem_bytes(222) == 198_912
-    assert tlc.smem_bytes(240) <= tlc.SMEM_LIMIT < tlc.smem_bytes(241)
+    """The largest n whose tiles stay resident in a block's shared memory:
+    320 in f32 (10 x 11 / 2 tiles of 32 x 32), 224 in f64 (14 x 15 / 2 tiles
+    of 16 x 16); above it the tiles are streamed, with less shared memory."""
+    assert tlc.smem_bytes(222) == 116_480
+    assert tlc.smem_bytes(222, torch.float64) == 218_624
+    for dtype, largest in ((torch.float32, 320), (torch.float64, 224)):
+        assert tlc.tile_plan(largest, dtype).resident
+        assert tlc.smem_bytes(largest, dtype) <= tlc.SMEM_LIMIT
+        assert not tlc.tile_plan(largest + 1, dtype).resident
+        assert tlc.smem_bytes(largest + 1, dtype) < tlc.smem_bytes(largest, dtype)
+
+
+F32, F64 = torch.float32, torch.float64
+
+
+@pytest.mark.parametrize("n,dtype,want", [
+    # the path shape: f32 (batched, solve_window) and f64 (streaming)
+    (222, F32, (32, 224, True, False, 28 * 4096 + 2 * 224 * 4, 0)),
+    (222, F64, (16, 224, True, False, 105 * 2048 + 2 * 224 * 8, 0)),
+    # the largest resident n of each dtype
+    (320, F32, (32, 320, True, False, 55 * 4096 + 2 * 320 * 4, 0)),
+    (224, F64, (16, 224, True, False, 218_624, 0)),
+    # streamed: the triangle in a workspace, two panels in shared memory
+    (238, F64, (16, 240, False, True, 2 * 15 * 2048 + 2 * 240 * 8, 120 * 256)),
+    (384, F32, (32, 384, False, True, 2 * 12 * 4096 + 2 * 384 * 4, 78 * 1024)),
+    # streamed, two panels (2 x 57 tiles) over the limit too
+    (1800, F32, (32, 1824, False, False, 2 * 1824 * 4, 57 * 58 // 2 * 1024)),
+    (1, F32, (32, 32, True, False, 4096 + 2 * 32 * 4, 0)),
+])
+def test_tile_plan_pins_layout(n, dtype, want):
+    assert tuple(tlc.tile_plan(n, dtype)) == want
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+def test_tile_plan_every_n_fits(dtype):
+    """Every n up to 2000 gets a layout that fits a block; nothing an
+    earlier layout took (f32 n <= 240, f64 n <= 238) is refused."""
+    for n in range(1, 2001):
+        p = tlc.tile_plan(n, dtype)
+        assert p.n_pad % p.nb == 0 and n <= p.n_pad < n + p.nb
+        assert p.smem_bytes <= tlc.SMEM_LIMIT
+        nt = p.n_pad // p.nb
+        assert p.work_elems == (0 if p.resident
+                                else nt * (nt + 1) // 2 * p.nb * p.nb)
+        work, args = tlc.launch_args(n, dtype, 2, "cpu")
+        assert args == (p.nb, int(p.resident), int(p.panel_in_smem),
+                        p.smem_bytes)
+        assert (work is None) == p.resident
+        if work is not None:
+            assert tuple(work.shape) == (2, p.work_elems)
+            assert work.dtype == dtype
+
+
+def test_launch_args_refuses_what_no_block_holds():
+    """Only an n whose two vectors exceed a block's shared memory is
+    refused (f32 n > 29,056), as the column kernel refused it."""
+    tlc.launch_args(29_056, F32, 1, "meta")
+    with pytest.raises(ValueError):
+        tlc.launch_args(29_057, F32, 1, "meta")
