@@ -5,8 +5,9 @@ numpy arrays (the JAX package's NamedTuples after `np.asarray` on every
 leaf, or any object with the same field names as attributes) and makes the
 port's.
 `window_to_numpy` goes back: the port's NamedTuples with numpy leaves, from
-which the JAX package's types are made field by field. Nothing of the JAX
-package is imported here.
+which the JAX package's types are made field by field.
+`ekf_state_from_numpy` / `ekf_state_to_numpy` carry the legged EKF's
+`EKFState` the same way. Nothing of the JAX package is imported here.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from cerberus_tpu_torch.device import resolve_device
+from cerberus_tpu_torch.frontend.ekf import EKFState
 from cerberus_tpu_torch.ops import factors as fac
 
 
@@ -27,10 +29,7 @@ def _to_port(cls, obj, conv):
     return cls(**fields)
 
 
-def window_from_numpy(state_np, data_np, *, device="cuda",
-                      dtype=torch.float64):
-    """(WindowState, WindowData) of the port on `device`: float leaves in
-    `dtype`, bool and int leaves keep their type."""
+def _converter(device, dtype):
     dev = resolve_device(device)
 
     def conv(x):
@@ -39,6 +38,14 @@ def window_from_numpy(state_np, data_np, *, device="cuda",
             return torch.tensor(a, dtype=dtype, device=dev)
         return torch.tensor(a, device=dev)
 
+    return conv
+
+
+def window_from_numpy(state_np, data_np, *, device="cuda",
+                      dtype=torch.float64):
+    """(WindowState, WindowData) of the port on `device`: float leaves in
+    `dtype`, bool and int leaves keep their type."""
+    conv = _converter(device, dtype)
     return (_to_port(fac.WindowState, state_np, conv),
             _to_port(fac.WindowData, data_np, conv))
 
@@ -47,3 +54,16 @@ def window_to_numpy(state: fac.WindowState, data: fac.WindowData):
     """The port's (WindowState, WindowData) with numpy leaves."""
     to_np = lambda t: t.detach().cpu().numpy()
     return fac.map_tensors(to_np, state), fac.map_tensors(to_np, data)
+
+
+def ekf_state_from_numpy(state_np, *, device="cuda", dtype=torch.float64):
+    """The port's EKFState on `device` from an object with EKFState's field
+    names whose leaves are numpy arrays (the JAX package's EKFState after
+    `np.asarray` on every leaf): float leaves in `dtype`, the int32 ring
+    index as it is."""
+    return _to_port(EKFState, state_np, _converter(device, dtype))
+
+
+def ekf_state_to_numpy(state: EKFState) -> EKFState:
+    """The port's EKFState with numpy leaves."""
+    return EKFState(*(t.detach().cpu().numpy() for t in state))

@@ -38,3 +38,19 @@ def full_f32_matmuls():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = old
+
+
+def side_stream(device: torch.device):
+    """A stream of its own for a component that fetches from the card once
+    per step (the tracker, the EKF), or None on the CPU. A fetch synchronises
+    only its own stream, so it does not wait for the estimator's step queued
+    on the default stream. PyTorch makes its streams non-blocking: they do
+    not wait for the legacy default stream either."""
+    return torch.cuda.Stream(device) if device.type == "cuda" else None
+
+
+def on_stream(stream):
+    """Make `stream` the current stream of this thread for the block (the
+    current stream is per thread); a no-op for None."""
+    return (torch.cuda.stream(stream) if stream is not None
+            else contextlib.nullcontext())

@@ -4,8 +4,10 @@
     python3 chip_smoke.py [--profile]
 
 Phases, each printed with its elapsed seconds:
-  1. environment: torch and CUDA versions, the card's name and power limit;
-     fails without a CUDA device (there is no CPU fallback);
+  1. environment: torch and CUDA versions, the card's name and power limit,
+     whether OpenCV is importable (the device tracker does not need it) and,
+     if it is, PinholeCamera's undistortion against OpenCV's; fails without
+     a CUDA device (there is no CPU fallback);
   2. build: the kernel sources cerberus_tpu_torch/csrc/*.cu, one nvcc each,
      all started together, into build/cerberus_tpu_torch/, with each
      kernel's registers, shared memory and spills as ptxas reports them;
@@ -29,9 +31,22 @@ Phases, each printed with its elapsed seconds:
      two simulated sequences, 20 camera frames each, with the end-to-end
      tests' gates, the f64 kernel's launches counted per solve, and the
      first 14 frames cross-checked against the port on the CPU;
-  6. with --profile: one batched solve and one streaming step under
-     torch.profiler, host time split by the code's spans and the device time
-     of their kernels.
+  6. tracker check: the device tracker's frame programs (_first_frame,
+     track_frame) on the card against the same functions on the CPU, on 3
+     rendered 640x480 stereo pairs of sequence A with equal inputs;
+  7. ekf check: the legged EKF on the card against the same filter on the
+     CPU over sequence A's 1,500 samples (f64), each timed per sample;
+  8. image replay A: the image pipeline at full width — sequence A's 20
+     camera frames rendered at 640x480 stereo (prerendered, outside the
+     timed loop) -> the device tracker (120 slots, 4 levels, 21x21 patches,
+     10 iterations) on its own stream and worker thread -> the f64
+     streaming estimator (default EstimatorConfig) with contacts from the
+     legged EKF on the card (contact source 0) — with the gates, the f64
+     kernel's launches counted, tracker, render and EKF times, and tracks
+     alive per frame;
+  9. with --profile: one batched solve, one streaming step and one image
+     replay frame under torch.profiler, host time split by the code's spans
+     and the device time of their kernels.
 
 Ends with a line of each kernel's launches per path, the card's name and
 power limit, a JSON line of the kernels' numbers, then the result line
@@ -55,10 +70,18 @@ import torch  # noqa: E402
 
 from cerberus_tpu_torch import _build  # noqa: E402
 from cerberus_tpu_torch.config import EstimatorConfig  # noqa: E402
-from cerberus_tpu_torch.data.replay import replay  # noqa: E402
-from cerberus_tpu_torch.data.simulator import SimConfig, simulate  # noqa: E402
+from cerberus_tpu_torch import convert  # noqa: E402
+from cerberus_tpu_torch.data.replay import replay, replay_images  # noqa: E402
+from cerberus_tpu_torch.data.simulator import (ImageRenderer,  # noqa: E402
+                                               PrerenderedFrames, SimConfig,
+                                               simulate)
 from cerberus_tpu_torch.data.window_builder import build_window_from_sim  # noqa: E402
 from cerberus_tpu_torch.estimator import estimator as E  # noqa: E402
+from cerberus_tpu_torch.frontend.device_tracker import (DeviceTracker,  # noqa: E402
+                                                        _first_frame)
+from cerberus_tpu_torch.frontend.ekf import LeggedEKF  # noqa: E402
+from cerberus_tpu_torch.frontend.tracker import PinholeCamera  # noqa: E402
+from cerberus_tpu_torch.ops import klt  # noqa: E402
 from cerberus_tpu_torch.ops import cholesky_solve as cs  # noqa: E402
 from cerberus_tpu_torch.ops import factors as fac  # noqa: E402
 from cerberus_tpu_torch.ops import lane_cholesky as lc  # noqa: E402
@@ -82,6 +105,12 @@ LANE_B = (1, 2, 128, 130)
 TIMED_CALLS = 50     # kernel or library calls between one event pair
 STREAM_FRAMES = 20   # camera frames per streaming sequence
 CHECK_FRAMES = 14    # frames of sequence A cross-checked against the CPU
+SEQ_A = SimConfig(duration=3.0, speed=0.5, seed=5)   # sequence A
+TRACK_PAIRS = 3      # rendered stereo pairs of the tracker check
+TRACK_POS_TOL = 1e-2  # px, tracker card vs CPU, points kept by both
+TRACK_AGREE = 0.98   # share of slots whose flags must agree, card vs CPU
+EKF_TOL = 1e-9       # EKF card vs CPU, relative, f64
+ATE_GATE = 0.0041    # m: 2x the JAX package's 0.00204 on the image replay
 
 # kernel rows: (name, dtype) -> what the JSON line says of it
 KERNELS = {
@@ -232,6 +261,27 @@ def read_counts():
             "cholesky_solve": cs.LAUNCHES}
 
 
+def check_undistort():
+    """Say whether OpenCV imports here (the device tracker does not need
+    it); if it does, hold PinholeCamera's NumPy undistortion to
+    cv2.undistortPoints with a nonzero rad-tan distortion (1e-9)."""
+    try:
+        import cv2
+    except ImportError:
+        print("cv2 absent: the device tracker and PinholeCamera do not need it")
+        return
+    cam = PinholeCamera(458.6, 457.3, 367.2, 248.4,
+                        dist=(-0.28, 0.07, 1e-4, -2e-4))
+    pts = np.random.default_rng(0).uniform([0, 0], [640, 480], size=(400, 2))
+    want = cv2.undistortPoints(pts.reshape(-1, 1, 2), cam.K,
+                               cam.dist).reshape(-1, 2)
+    err = float(np.abs(cam.undistort_normalize(pts) - want).max())
+    print(f"cv2 {cv2.__version__} importable; PinholeCamera vs "
+          f"cv2.undistortPoints max |d| {err:.3e}")
+    if not err <= 1e-9:
+        raise AssertionError(f"PinholeCamera undistortion off by {err}")
+
+
 def environment():
     t0 = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -242,6 +292,7 @@ def environment():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
+    check_undistort()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -540,17 +591,23 @@ def batched_path(dev):
 class FrameClock:
     """Host time of each input_image call of an estimator made while it was
     in the NON_LINEAR phase (the frame's fetch of the previous step, host
-    work and dispatch of its own step), with the card synchronised."""
+    work and dispatch of its own step), read after a sync: of the whole
+    card for the streaming replays, as since PR 4; of the estimator's
+    stream (the current one) alone for the image replay, whose tracker and
+    EKF run on streams of their own and whose tracker's next frame is in
+    flight on the worker thread by design."""
 
-    def __init__(self, est):
+    def __init__(self, est, whole_device=True):
         self.ms = []
         inner = est.input_image
+        sync = (torch.cuda.synchronize if whole_device
+                else lambda: torch.cuda.current_stream().synchronize())
 
         def timed(t, feats):
             streaming = est.solver_flag == est.NON_LINEAR
             t0 = time.perf_counter()
             inner(t, feats)
-            torch.cuda.synchronize()
+            sync()
             if streaming:
                 self.ms.append((time.perf_counter() - t0) * 1e3)
 
@@ -601,7 +658,7 @@ def streaming_path(dev):
     """Sequences A and B of tests/test_estimator_e2e.py at full width on the
     card with that test's gates, then the first CHECK_FRAMES frames of A on
     the card and on the CPU. Returns (launches per path, numbers)."""
-    seq_a = SimConfig(duration=3.0, speed=0.5, seed=5)
+    seq_a = SEQ_A
     out, counts_a, fps, ms = run_sequence("streaming A", seq_a, dev)
     est = out["estimator"]
     check_launches("streaming A", out, counts_a)
@@ -650,6 +707,195 @@ def streaming_path(dev):
     return launches, numbers
 
 
+def rendered_pairs(sim, n):
+    """The first n camera frames of `sim` as 640x480 stereo pairs (uint8),
+    with the renderer (its focal length and principal point)."""
+    r = ImageRenderer(sim, EstimatorConfig())
+    return [r.render_stereo(int(k)) for k in sim["cam_idx"][:n]], r
+
+
+def tracker_check(dev, sim):
+    """_first_frame on frame 0, then track_frame on frames 1.. from equal
+    inputs (the CPU's tracks and detections of the frame before), on the
+    card and on the CPU: the same slots kept, positions kept by both within
+    TRACK_POS_TOL px, stereo flags equal on >= TRACK_AGREE of the slots,
+    the detections' ok sets equal but for at most 2 points."""
+    t0 = time.perf_counter()
+    pairs, _ = rendered_pairs(sim, TRACK_PAIRS)
+    cfg = EstimatorConfig()
+    N, md = cfg.max_cnt, cfg.min_dist
+    args = dict(levels=4, half=10, iters=10, min_dist=md, fb_thresh=0.5,
+                stereo=True)
+    on = lambda d: lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(d)
+    cpu = torch.device("cpu")
+    worst = dict(max_abs_dp=0.0, min_flag_agree=1.0, det_differ=0)
+
+    def compare(label, got, want, ok_keys, pt_keys, exact=()):
+        g = {k: v.cpu().numpy() for k, v in got.items() if k != "pyr0"}
+        w = {k: v.numpy() for k, v in want.items() if k != "pyr0"}
+        for k in exact:
+            if not np.array_equal(g[k], w[k]):
+                raise AssertionError(f"tracker check {label}: {k} differs, "
+                                     f"card vs CPU")
+        for ok, pt in zip(ok_keys, pt_keys):
+            agree = float(np.mean(g[ok] == w[ok]))
+            both = g[ok] & w[ok]
+            dp = float(np.abs(g[pt][both] - w[pt][both]).max()) \
+                if both.any() else 0.0
+            worst["max_abs_dp"] = max(worst["max_abs_dp"], dp)
+            worst["min_flag_agree"] = min(worst["min_flag_agree"], agree)
+            if not (agree >= TRACK_AGREE and dp <= TRACK_POS_TOL):
+                raise AssertionError(f"tracker check {label}: {ok} agree "
+                                     f"{agree}, {pt} max |d| {dp} px")
+        gd = set(map(tuple, g["det_pts"][g["det_ok"]].tolist()))
+        wd = set(map(tuple, w["det_pts"][w["det_ok"]].tolist()))
+        worst["det_differ"] = max(worst["det_differ"], len(gd ^ wd))
+        if len(gd ^ wd) > 2:
+            raise AssertionError(f"tracker check {label}: detections differ "
+                                 f"by {len(gd ^ wd)} of {len(wd)}")
+        return w
+
+    card, host = (_first_frame(on(d)(pairs[0][0]), on(d)(pairs[0][1]),
+                               max_new=N, **args) for d in (dev, cpu))
+    torch.cuda.synchronize()
+    ref = compare("_first_frame", card, host, ("r_ok",), ("r_pts",))
+    kept = []
+    for k in range(1, TRACK_PAIRS):
+        n = int(ref["det_ok"].sum())
+        pts = np.zeros((N, 2), np.float32)
+        pts[:n] = ref["det_pts"][ref["det_ok"]]
+        valid = np.arange(N) < n
+        prio = np.where(valid, np.arange(N) % 3, -1).astype(np.int32)
+        card, host = (klt.track_frame(
+            tuple(klt.build_pyramid(on(d)(pairs[k - 1][0]), 4)),
+            on(d)(pairs[k][0]), on(d)(pairs[k][1]), on(d)(pts),
+            on(d)(valid), on(d)(pts), on(d)(prio), det_stereo=32, **args)
+            for d in (dev, cpu))
+        torch.cuda.synchronize()
+        w = compare(f"track_frame {k}", card, host, ("keep", "r_ok"),
+                    ("pts", "r_pts"), exact=("keep",))
+        kept.append(int(w["keep"].sum()))
+        # the next frame tracks what this one kept and detected, as the
+        # device tracker does
+        nxt = np.concatenate([w["pts"][w["keep"]],
+                              w["det_pts"][w["det_ok"]]])[:N]
+        ref = dict(det_pts=nxt, det_ok=np.ones(len(nxt), bool))
+    phase("tracker check", t0, pairs=TRACK_PAIRS, slots=N, kept=kept,
+          **worst)
+
+
+def ekf_samples(ekf, sim, n):
+    """Feed samples 0..n-1 as the replay does (init, then update_filter +
+    get_contacts per sample); returns (contacts (n-1, 4), ms per sample)."""
+    ekf.init_filter(sim["t"][0], sim["acc"][0], sim["gyr"][0], sim["phi"][0])
+    contacts = []
+    t0 = time.perf_counter()
+    for k in range(1, n):
+        ekf.update_filter(sim["t"][k], sim["acc"][k], sim["gyr"][k],
+                          sim["phi"][k], dphi=sim["dphi"][k],
+                          foot_force=sim["foot_forces"][k])
+        contacts.append(ekf.get_contacts())
+    return np.array(contacts), (time.perf_counter() - t0) * 1e3 / (n - 1)
+
+
+def ekf_check(dev, sim):
+    """The legged EKF over sequence A's samples on the card and on the CPU
+    (f64): every sample's contacts and the final state, P included, within
+    EKF_TOL relative. Returns the ms per sample on each."""
+    t0 = time.perf_counter()
+    n = len(sim["t"])
+    card = LeggedEKF(EstimatorConfig(), filter_window=4, device=dev)
+    c_card, ms_card = ekf_samples(card, sim, n)
+    host = LeggedEKF(EstimatorConfig(), filter_window=4, device="cpu")
+    c_cpu, ms_cpu = ekf_samples(host, sim, n)
+    errs = {"contacts": float(np.abs(c_card - c_cpu).max())}
+    got = convert.ekf_state_to_numpy(card.state)
+    for name, a, b in zip(got._fields, got,
+                          convert.ekf_state_to_numpy(host.state)):
+        if a.dtype.kind == "f":
+            errs[name] = float(np.abs(a - b).max() / max(np.abs(b).max(),
+                                                          1e-300))
+    if not (max(errs.values()) <= EKF_TOL
+            and np.array_equal(c_card > 0.5, c_cpu > 0.5)):
+        raise AssertionError(f"ekf check: card vs CPU {errs}")
+    phase("ekf check", t0, samples=n, max_rel_err=max(errs.values()),
+          ekf_ms_per_sample_card=ms_card, ekf_ms_per_sample_cpu=ms_cpu)
+    return dict(ekf_ms_per_sample_card=ms_card, ekf_ms_per_sample_cpu=ms_cpu)
+
+
+def image_setup(dev, sim, frames):
+    """The image path's parts at full width on `dev`: the first `frames`
+    camera frames prerendered (640x480 stereo), the default estimator, the
+    device tracker and the legged EKF (filter window 4)."""
+    cfg = EstimatorConfig()
+    r = ImageRenderer(sim, cfg)
+    frames_src = PrerenderedFrames(r, sorted(sim["cam_idx"])[:frames])
+    cam = PinholeCamera(r.f, r.f, r.cx, r.cy, size=(r.W, r.H))
+    tracker = DeviceTracker(cam, cam, max_cnt=cfg.max_cnt,
+                            min_dist=cfg.min_dist, flow_back=cfg.flow_back,
+                            levels=4, half=10, iters=10, det_stereo=32,
+                            device=dev)
+    return (frames_src, E.Estimator(cfg, device=dev), tracker,
+            LeggedEKF(cfg, filter_window=4, device=dev))
+
+
+def image_replay(dev, sim):
+    """Sequence A's image replay at full width, pipelined, on the card:
+    gates, launches, times. Returns (launches, numbers)."""
+    frames_src, est, tracker, ekf = image_setup(dev, sim, STREAM_FRAMES)
+    clock = FrameClock(est, whole_device=False)
+    alive, ekf_ms = [], [0.0]
+    track = tracker.track
+
+    def counted_track(t, img0, img1):
+        out = track(t, img0, img1)
+        alive.append(len(out))
+        return out
+
+    tracker.track = counted_track
+    for name in ("update_filter", "get_contacts"):
+        inner = getattr(ekf, name)
+
+        def timed(*a, _inner=inner, **kw):
+            t0 = time.perf_counter()
+            out = _inner(*a, **kw)
+            ekf_ms[0] += (time.perf_counter() - t0) * 1e3
+            return out
+
+        setattr(ekf, name, timed)
+    t0 = time.perf_counter()
+    reset_counts()
+    out = replay_images(sim, est=est, tracker=tracker, renderer=frames_src,
+                        ekf=ekf, max_frames=STREAM_FRAMES,
+                        pipeline_frontend=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    wall = time.perf_counter() - t0
+    st = est.stats
+    nums = dict(frames=STREAM_FRAMES, frames_per_s=STREAM_FRAMES / wall,
+                median_ms_per_nonlinear_frame=float(np.median(clock.ms)),
+                track_ms_per_frame=out["track_ms_per_frame"],
+                render_ms_per_frame=out["render_ms_per_frame"],
+                ekf_ms_per_sample=ekf_ms[0] / (len(sim["t"]) - 1),
+                ate_rmse=out["ate_rmse"], drift_pct=out["drift_pct"],
+                keyframes=st["keyframes"], solves=st["solves"],
+                init_solves=st["init_solves"], reboots=st["reboots"],
+                f64_launches=counts["lane_cholesky_solve[f64]"],
+                tracks_alive=alive, prerender_s=frames_src.prerender_s)
+    phase("image replay A", t0, launches=counts, **nums)
+    check_launches("image replay A", out, counts)
+    gates = {"solver_flag == NON_LINEAR": est.solver_flag == est.NON_LINEAR,
+             "reboots == 0": st["reboots"] == 0,
+             f"ate_rmse <= {ATE_GATE}": out["ate_rmse"] <= ATE_GATE,
+             "a f64 launch per LM iteration": counts[
+                 "lane_cholesky_solve[f64]"] > 0,
+             "tracker frames": out["tracker"].stats["frames"]
+             == STREAM_FRAMES}
+    if not all(gates.values()):
+        raise AssertionError(f"image replay A gates: {gates}")
+    return counts, nums
+
+
 def profile_spans(label, fn, spans, total):
     """Run fn() once under torch.profiler; print host ms per span (summed
     over its calls), the device time of the kernels, and the top kernels."""
@@ -659,7 +905,13 @@ def profile_spans(label, fn, spans, total):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
+    return report_spans(label, prof.key_averages(), spans, total)
+
+
+def report_spans(label, events, spans, total):
+    """Print host ms per span, kernel time and count, the device's busy
+    share over `total` (a span's name, or a number of ms) and the top
+    kernels and host ops. Returns (host ms per span, kernel ms)."""
     by_key = {e.key: e for e in events
               if e.key in spans and e.device_type
               == torch.autograd.DeviceType.CPU}
@@ -671,17 +923,57 @@ def profile_spans(label, fn, spans, total):
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and not e.is_user_annotation]
     device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    total_ms = host_ms[total] if isinstance(total, str) else total
     print(f"profile {label} host ms: " + " ".join(
         f"{k}={host_ms.get(k, 0.0):.3f} ({calls.get(k, 0)} calls)"
         for k in spans))
     print(f"profile {label} device: kernel_ms={device_ms:.3f} "
           f"kernels={sum(e.count for e in on_device)} "
-          f"busy_share_profiled={device_ms / host_ms[total]:.4f}")
+          f"busy_share_profiled={device_ms / total_ms:.4f}")
     print(events.table(sort_by="self_device_time_total", row_limit=8,
                        max_name_column_width=50))
     print(events.table(sort_by="self_cpu_time_total", row_limit=8,
                        max_name_column_width=50))
     return host_ms, device_ms
+
+
+def profile_image_frame(dev, sim, frame=13):
+    """One frame of the image replay under torch.profiler: the work between
+    the estimator's (frame-1)-th and frame-th input_image calls — the EKF
+    and estimator samples, the tracker's frame, the estimator's frame —
+    run sequentially (pipeline_frontend=False) on the card. The frame before
+    it is timed unprofiled in the same run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    frames_src, est, tracker, ekf = image_setup(dev, sim, frame + 1)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    inner, calls, marks = est.input_image, [0], {}
+
+    def hooked(t, feats):
+        inner(t, feats)
+        calls[0] += 1
+        if calls[0] in (frame - 2, frame - 1, frame):
+            torch.cuda.synchronize()
+            marks[calls[0]] = time.perf_counter()
+        if calls[0] == frame - 1:
+            prof.start()
+        elif calls[0] == frame:
+            prof.stop()
+
+    est.input_image = hooked
+    replay_images(sim, est=est, tracker=tracker, renderer=frames_src,
+                  ekf=ekf, max_frames=frame + 1, pipeline_frontend=False)
+    unprofiled_ms = (marks[frame - 1] - marks[frame - 2]) * 1e3
+    profiled_ms = (marks[frame] - marks[frame - 1]) * 1e3
+    spans = ("ekf_step", "track_frame", "tracker_host", "preint_fold",
+             "build_window_data", "lm_solve", "assemble", "solve_step",
+             "reproj_gate", "marginalize")
+    _, device_ms = report_spans("image frame", prof.key_averages(), spans,
+                                profiled_ms)
+    print(f"profile image frame: profiled {profiled_ms:.3f} ms, the frame "
+          f"before unprofiled {unprofiled_ms:.3f} ms, busy_share_unprofiled"
+          f"={device_ms / unprofiled_ms:.4f}, estimator "
+          f"{'NON_LINEAR' if est.solver_flag == est.NON_LINEAR else 'INITIAL'}")
 
 
 def profile_runs(problem, batched_s, dev):
@@ -706,8 +998,8 @@ def profile_runs(problem, batched_s, dev):
 
     E._streaming_step = spy
     try:
-        replay(simulate(SimConfig(duration=3.0, speed=0.5, seed=5)),
-               est=E.Estimator(EstimatorConfig(), device=dev), max_frames=12)
+        replay(simulate(SEQ_A), est=E.Estimator(EstimatorConfig(), device=dev),
+               max_frames=12)
     finally:
         E._streaming_step = step
     args, kw = rec["call"]
@@ -725,14 +1017,15 @@ def profile_runs(problem, batched_s, dev):
                                        "lm_solve")
     print(f"profile streaming step: unprofiled {step_s * 1e3:.3f} ms, "
           f"busy_share_unprofiled={device_ms / (step_s * 1e3):.4f}")
+    profile_image_frame(dev, simulate(SEQ_A))
     phase("profile", t0)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one batched solve and one "
-                             "streaming step")
+                        help="also profile one batched solve, one "
+                             "streaming step and one image replay frame")
     args = parser.parse_args()
     dev, smi = environment()
     build()
@@ -741,13 +1034,19 @@ def main():
     stream_launches, stream = streaming_path(dev)
     launches.update(stream_launches)
     print("streaming: " + json.dumps(stream))
+    sim_a = simulate(SEQ_A)
+    tracker_check(dev, sim_a)
+    image = ekf_check(dev, sim_a)
+    launches["image replay A"], nums = image_replay(dev, sim_a)
+    image.update(nums)
+    print("image replay: " + json.dumps(image))
     if args.profile:
         profile_runs(problem, batched_s, dev)
     print("kernels: " + " ".join(
         f"{name}={counts[name]} ({path})"
         for name, _ in KERNELS for path, counts in launches.items()))
     main_path = {"lane_cholesky_solve[f32]": "solve_window_batched",
-                 "lane_cholesky_solve[f64]": "streaming A",
+                 "lane_cholesky_solve[f64]": "image replay A",
                  "cholesky_solve": "solve_window_batched"}
     rows = []
     for (name, dtype), meta in KERNELS.items():

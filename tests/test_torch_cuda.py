@@ -1,9 +1,11 @@
 """The port on the card, what chip_smoke.py does not check: the kernels'
-wrappers refuse what the kernels do not take, and neither the LM loop nor
-the streaming estimator's per-frame step ever waits for the device.
+wrappers refuse what the kernels do not take; neither the LM loop, the
+streaming estimator's per-frame step, the tracker's frame program nor the
+EKF step ever waits for the device; the tracker's and the EKF's fetches
+wait for their own streams only; the device tracker runs without OpenCV.
 (chip_smoke.py holds the kernels to their plain versions and the card's
-solve and replay to the CPU's.) Every test here needs a CUDA device and
-skips without one.
+solve, replays, tracker and EKF to the CPU's.) Every test here but the last
+needs a CUDA device and skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is missing (tests/conftest.py imports JAX; skip it there):
@@ -223,3 +225,168 @@ def test_streaming_step_never_waits_for_the_device(cuda):
         torch.cuda.synchronize()
         assert torch.isfinite(out["st"].p).all()
         assert torch.isfinite(out["prior"][0]).all()
+
+
+def _frames(n, W=160, H=120):
+    """n stereo pairs (uint8) of sequence A at W x H, from the port's
+    renderer (NumPy only)."""
+    from cerberus_tpu_torch.config import EstimatorConfig
+    from cerberus_tpu_torch.data.simulator import (ImageRenderer, SimConfig,
+                                                   simulate)
+
+    sim = simulate(SimConfig(duration=1.0, speed=0.5, seed=5))
+    r = ImageRenderer(sim, EstimatorConfig(image_width=W, image_height=H),
+                      focal=460.0 * W / 640)
+    return [r.render_stereo(int(k)) for k in sim["cam_idx"][:n]], r
+
+
+def test_track_frame_never_waits_for_the_device(cuda):
+    """_first_frame and track_frame on the card under CUDA's sync debug
+    mode: the tracker's frame program never reads back (its one fetch is
+    the caller's)."""
+    from cerberus_tpu_torch.frontend.device_tracker import _first_frame
+    from cerberus_tpu_torch.ops import klt
+
+    frames, _ = _frames(2)
+    # the uploads (from pageable host memory) are the caller's, before
+    (a0, b0), (a1, b1) = [[torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                           for a in pair] for pair in frames]
+    N = 40
+    args = dict(levels=4, half=10, iters=10, min_dist=8, fb_thresh=0.5,
+                stereo=True)
+    prio = torch.arange(N, dtype=torch.int32, device=cuda) % 3
+
+    def both():
+        first = _first_frame(a0, b0, max_new=N, **args)
+        pts = first["det_pts"]
+        return klt.track_frame(first["pyr0"], a1, b1, pts, first["det_ok"],
+                               pts, prio, det_stereo=16, **args)
+
+    both()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = both()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int(out["keep"].sum()) > 5
+
+
+def test_ekf_step_never_waits_for_the_device(cuda):
+    """One ekf_step with its inputs on the card under CUDA's sync debug
+    mode (a first call has run the same step)."""
+    from cerberus_tpu_torch.config import EstimatorConfig
+    from cerberus_tpu_torch.frontend import ekf
+
+    params = ekf.EKFParams.from_config(EstimatorConfig(), device=cuda)
+    f64 = lambda *v: torch.tensor(v, dtype=torch.float64, device=cuda)
+    phi = f64(*([0.0, 0.8, -1.6] * 4))
+    s = ekf.ekf_init(f64(0.0, 0.0, 0.3), f64(1.0, 0.0, 0.0, 0.0), phi, params)
+    x = (f64(0.002), f64(0.1, 0.0, 9.8), f64(0.0, 0.01, 0.0), phi,
+         f64(*([0.1] * 12)), f64(80.0, 5.0, 90.0, 3.0))
+    ekf.ekf_step(s, *x, params)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ekf.ekf_step(s, *x, params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.P).all() and torch.isfinite(out.p).all()
+
+
+def _busy_default_stream(seconds):
+    """Queue a kernel that spins for about `seconds` on the default stream;
+    returns an event recorded after it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 6)
+    end.record()
+    end.synchronize()
+    cycles_per_s = 10 ** 6 / (start.elapsed_time(end) / 1e3)
+    torch.cuda._sleep(int(seconds * cycles_per_s))
+    done = torch.cuda.Event()
+    done.record()
+    return done
+
+
+def test_fetches_do_not_wait_for_other_streams(cuda):
+    """The tracker's per-frame fetch and the EKF's per-sample fetch wait
+    for their own streams only: with the default stream busy for 3 s (the
+    estimator's step in a replay), a frame is tracked and 20 EKF samples
+    are filtered and read before that work ends."""
+    import time
+
+    from cerberus_tpu_torch.config import EstimatorConfig
+    from cerberus_tpu_torch.frontend.device_tracker import DeviceTracker
+    from cerberus_tpu_torch.frontend.ekf import LeggedEKF
+    from cerberus_tpu_torch.frontend.tracker import PinholeCamera
+
+    frames, r = _frames(3)
+    cam = PinholeCamera(r.f, r.f, r.cx, r.cy, size=(r.W, r.H))
+    tracker = DeviceTracker(cam, cam, max_cnt=40, min_dist=8, device=cuda)
+    tracker.track(0.0, *frames[0])
+    tracker.track(1 / 15, *frames[1])
+    kf = LeggedEKF(EstimatorConfig(), filter_window=4, device=cuda)
+    phi = np.array([0.0, 0.8, -1.6] * 4)
+    acc, gyr = np.array([0.1, 0.0, 9.8]), np.zeros(3)
+    kf.init_filter(0.0, acc, gyr, phi)
+    kf.update_filter(0.002, acc, gyr, phi, foot_force=np.full(4, 80.0))
+    kf.get_contacts()
+    torch.cuda.synchronize()
+    busy = _busy_default_stream(3.0)
+    t0 = time.perf_counter()
+    feats = tracker.track(2 / 15, *frames[2])
+    for i in range(20):
+        kf.update_filter(0.004 + 0.002 * i, acc, gyr, phi,
+                         foot_force=np.full(4, 80.0))
+        contacts = kf.get_contacts()
+    elapsed = time.perf_counter() - t0
+    still_busy = not busy.query()
+    torch.cuda.synchronize()
+    assert still_busy, f"the default stream finished first ({elapsed:.3f} s)"
+    assert len(feats) > 5 and contacts.shape == (4,)
+
+
+def test_device_tracker_without_opencv(cuda, monkeypatch):
+    """With cv2 unimportable the device tracker runs on the card (its
+    PinholeCamera undistorts in NumPy), while the OpenCV tracker refuses
+    to be made."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    from cerberus_tpu_torch.frontend.device_tracker import DeviceTracker
+    from cerberus_tpu_torch.frontend.tracker import (FeatureTracker,
+                                                     PinholeCamera)
+
+    frames, r = _frames(3)
+    cam = PinholeCamera(r.f, r.f, r.cx, r.cy, size=(r.W, r.H))
+    tracker = DeviceTracker(cam, cam, max_cnt=40, min_dist=8, device=cuda)
+    feats = [tracker.track(k / 15, *f) for k, f in enumerate(frames)]
+    assert len(set(feats[0]) & set(feats[2])) > 5
+    with pytest.raises(ImportError, match="OpenCV"):
+        FeatureTracker(cam, cam)
+
+
+def test_pinhole_camera_without_opencv(monkeypatch):
+    """PinholeCamera needs no OpenCV; the OpenCV-only parts raise a clear
+    ImportError and never switch to another tracker. Runs on the CPU too."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    from cerberus_tpu_torch.frontend.tracker import (FeatureTracker,
+                                                     FisheyeCamera,
+                                                     PinholeCamera)
+
+    cam = PinholeCamera(460.0, 460.0, 320.0, 240.0, dist=(-0.28, 0.07, 1e-4,
+                                                          -2e-4))
+    out = cam.undistort_normalize(np.array([[320.0, 240.0], [400.0, 300.0]]))
+    assert np.allclose(out[0], 0.0) and np.all(np.isfinite(out))
+    assert out[1, 0] > (400.0 - 320.0) / 460.0    # barrel: pushed outward
+    with pytest.raises(ImportError, match="OpenCV"):
+        FeatureTracker(cam, cam)
+    with pytest.raises(ImportError, match="OpenCV"):
+        FisheyeCamera(460.0, 460.0, 320.0, 240.0).undistort_normalize(
+            np.ones((1, 2)))

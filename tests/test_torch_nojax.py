@@ -46,6 +46,25 @@ NO_JAX_SCRIPT = textwrap.dedent("""
     H = torch.eye(3, dtype=torch.float64)[None] * 2.0
     x = cholesky_solve(H, torch.ones((1, 3), dtype=torch.float64), 0.0)
     assert torch.allclose(x, torch.full((1, 3), -0.5, dtype=torch.float64))
+    import dataclasses
+    from cerberus_tpu_torch.config import EstimatorConfig
+    from cerberus_tpu_torch.data.replay import replay_images
+    from cerberus_tpu_torch.data.simulator import ImageRenderer
+    from cerberus_tpu_torch.frontend import LeggedEKF
+    from cerberus_tpu_torch.frontend.device_tracker import DeviceTracker
+    from cerberus_tpu_torch.frontend.tracker import PinholeCamera
+    short = simulate(SimConfig(duration=0.3, speed=0.5, seed=5))
+    cfg = dataclasses.replace(EstimatorConfig(), image_width=160,
+                              image_height=120, max_features=16,
+                              max_num_iterations=1)
+    cam = PinholeCamera(115.0, 115.0, 80.0, 60.0, size=(160, 120))
+    out = replay_images(
+        short, cfg=cfg, renderer=ImageRenderer(short, cfg, focal=115.0),
+        tracker=DeviceTracker(cam, cam, max_cnt=16, min_dist=8, device="cpu"),
+        ekf=LeggedEKF(cfg, filter_window=4, device="cpu"), max_frames=2,
+        device="cpu")
+    assert out["tracker"].stats["frames"] == 2
+    assert out["estimator"].frame_count == 2
     assert not any(name == "jax" or name.startswith(("jax.", "jaxlib"))
                    or name.startswith("cerberus_tpu.")
                    for name, mod in sys.modules.items() if mod is not None)
@@ -96,3 +115,22 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         replay({"t": np.zeros(1)})
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_image_entry_points_default_to_cuda():
+    """The image pipeline's entry points ask for the card too: the EKF, the
+    device tracker and replay_images raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cerberus_tpu_torch.data.replay import replay_images
+    from cerberus_tpu_torch.frontend.device_tracker import DeviceTracker
+    from cerberus_tpu_torch.frontend.ekf import EKFParams, LeggedEKF
+    from cerberus_tpu_torch.frontend.tracker import PinholeCamera
+    from cerberus_tpu_torch.config import EstimatorConfig
+
+    cam = PinholeCamera(460.0, 460.0, 320.0, 240.0)
+    for make in (LeggedEKF, lambda: DeviceTracker(cam, cam),
+                 lambda: EKFParams.from_config(EstimatorConfig()),
+                 lambda: replay_images({"t": np.zeros(1)})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
