@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -54,3 +55,14 @@ def on_stream(stream):
     current stream is per thread); a no-op for None."""
     return (torch.cuda.stream(stream) if stream is not None
             else contextlib.nullcontext())
+
+
+def on_device(x, dev: torch.device, dtype=None) -> torch.Tensor:
+    """x (a tensor, a numpy array or a number) as a tensor on `dev`; float
+    data in `dtype` when given, else in its own float type. A tensor that is
+    already there in that type is returned as it is, with no copy."""
+    if not torch.is_tensor(x):
+        x = torch.tensor(np.asarray(x))   # a copy: the port owns its data
+    if dtype is not None and x.is_floating_point():
+        return x.to(device=dev, dtype=dtype)
+    return x.to(device=dev)

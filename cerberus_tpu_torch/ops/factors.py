@@ -23,8 +23,11 @@ Residual stack (rows):
 
 `retract`, `local_diff` and `robust_cost`'s callers may give any number of
 leading batch dimensions; the residual functions take one window and are
-batched with `torch.func.vmap`. The dense `linearize` is not ported (the
-port linearizes through ops/structured.py).
+batched with `torch.func.vmap`. The solver linearizes through
+ops/structured.py; the dense `linearize` (residual and full Jacobian by
+`torch.func.jacfwd`) serves the pooled calibration's tests and callers
+that want J itself, and `linearize_directions` gives J along a few
+directions only (`parallel/batched.py`).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.func import vmap
+from torch.func import jacfwd, vmap
 
 from cerberus_tpu_torch import config as C
 from cerberus_tpu_torch.utils import lie
@@ -353,6 +356,39 @@ def robust_cost(r: torch.Tensor, F: int):
         2.0 * HUBER_DELTA * torch.sqrt(torch.clamp(sq, min=1e-30)) - d2)
     other = torch.sum(r[: sl.start] ** 2) + torch.sum(r[sl.stop:] ** 2)
     return 0.5 * (torch.sum(rho) + other)
+
+
+def _weights_and_mask(lin: WindowState, data: WindowData, r0):
+    """(IRLS row weights of r0, free-mask column mask) of `linearize`."""
+    F = lin.depth.shape[0]
+    col_mask = torch.cat([data.free_mask.to(lin.p.dtype),
+                          data.f_valid.to(lin.p.dtype)])
+    return huber_row_weights(r0, F), col_mask
+
+
+def linearize(lin: WindowState, data: WindowData):
+    """Residual r and dense Jacobian J at delta = 0, with IRLS row weights and
+    free-mask column zeroing applied. J: (N, D_DENSE + F). Returns
+    (r, J, r0), r0 the unweighted residual."""
+    zero = torch.zeros(tangent_dim(lin.depth.shape[0]), dtype=lin.p.dtype,
+                       device=lin.p.device)
+    r0 = window_residuals(lin, zero, data)
+    J = jacfwd(lambda d: window_residuals(lin, d, data))(zero)
+    w, col_mask = _weights_and_mask(lin, data, r0)
+    return r0 * w, J * w[:, None] * col_mask[None, :], r0
+
+
+def linearize_directions(lin: WindowState, data: WindowData, dirs):
+    """`linearize`'s (r, J @ dirs) for a few tangent directions dirs
+    (D_DENSE + F, k): k forward-mode products instead of the full J, with
+    the same row weights and column mask. Returns (r (N,), Jd (N, k))."""
+    zero = torch.zeros(dirs.shape[1], dtype=lin.p.dtype,
+                       device=lin.p.device)
+    r0 = window_residuals(lin, torch.zeros_like(dirs[:, 0]), data)
+    w, col_mask = _weights_and_mask(lin, data, r0)
+    Jd = jacfwd(lambda a: window_residuals(
+        lin, (dirs * col_mask[:, None]) @ a, data))(zero)
+    return r0 * w, Jd * w[:, None]
 
 
 def feature_reproj_errors(st: WindowState, data: WindowData):

@@ -44,9 +44,24 @@ Phases, each printed with its elapsed seconds:
      legged EKF on the card (contact source 0) — with the gates, the f64
      kernel's launches counted, tracker, render and EKF times, and tracks
      alive per frame;
-  9. with --profile: one batched solve, one streaming step and one image
-     replay frame under torch.profiler, host time split by the code's spans
-     and the device time of their kernels.
+  9. keyframes -> pose graph: streaming A's keyframes (keyframe_callback)
+     fed a pose graph on the card, the gates of
+     tests/test_posegraph.py::test_estimator_feeds_posegraph;
+ 10. loop back-end street: the loop closer at full width (LoopCloser
+     defaults) on StreetStream's 889 keyframes of the street circuit, the
+     pose graph's optimize on the card; gates, counts and times; the guard
+     decisions replayed on the CPU; optimize_pose_graph of the final graph
+     (Nc = 1024) card vs CPU;
+ 11. fleet: build_fleet(4 segments x 32 perturbations) = 128 windows at
+     F = 96, f32, through solve_fleet (the f32 kernel's launches counted),
+     tests/test_fleet.py's gates, 8 windows against the CPU, windows per
+     second; the pooled calibration step against the CPU;
+ 12. sfm check: the initial SfM and alignment functions card vs CPU at the
+     estimator's window (11 frames, F = 160, 128 hypotheses) and
+     tests/test_initial_sfm.py's gates on the card;
+ 13. with --profile: one batched solve, one streaming step, one image
+     replay frame and one pose-graph optimize under torch.profiler, host
+     time split by the code's spans and the device time of their kernels.
 
 Ends with a line of each kernel's launches per path, the card's name and
 power limit, a JSON line of the kernels' numbers, then the result line
@@ -87,6 +102,15 @@ from cerberus_tpu_torch.ops import factors as fac  # noqa: E402
 from cerberus_tpu_torch.ops import lane_cholesky as lc  # noqa: E402
 from cerberus_tpu_torch.ops.solver import (SolveOptions, solve_window,  # noqa: E402
                                            solve_window_batched)
+from cerberus_tpu_torch.data.replay import score  # noqa: E402
+from cerberus_tpu_torch.estimator import initial_alignment as ialign  # noqa: E402
+from cerberus_tpu_torch.estimator import initial_sfm as isfm  # noqa: E402
+from cerberus_tpu_torch.loop.closer import LoopCloser, _yaw_of_quat  # noqa: E402
+from cerberus_tpu_torch.loop.posegraph import (PoseGraph,  # noqa: E402
+                                               optimize_pose_graph)
+from cerberus_tpu_torch.parallel import pooled_calibration_step  # noqa: E402
+from cerberus_tpu_torch.parallel.fleet import build_fleet, solve_fleet  # noqa: E402
+from cerberus_tpu_torch.utils import lie  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth,
 # float32 and float64 outside the tensor cores
@@ -112,6 +136,23 @@ TRACK_AGREE = 0.98   # share of slots whose flags must agree, card vs CPU
 EKF_TOL = 1e-9       # EKF card vs CPU, relative, f64
 ATE_GATE = 0.0041    # m: 2x the JAX package's 0.00204 on the image replay
 
+# the loop back-end's street stream (StreetStream): the circuit of
+# evals/long_run.py --loop, keyframes 0.27 m apart along it (over the loop
+# closer's 0.25 m gate by more than 3 sigma of the odometric step noise, so
+# that it drops almost none), 2.2 laps; the odometry's random walk drifts
+# 0.186 % of the distance (the JAX package's 470 s street run: 0.187 %)
+STREET = SimConfig(path="street", speed=0.75, seed=77)
+KF_SPACING = 0.27
+STREET_KEYFRAMES = 889
+ODO_SIGMA_P = 0.006     # m per keyframe step and horizontal axis
+ODO_SIGMA_YAW = 2e-4    # rad per keyframe step
+KF_PIX_NOISE = 0.5      # px (focal 460) on the keyframes' observations
+
+CPU_REPLAY_S = 150   # s: budget of the loop stream's replay on the CPU
+PG_TOL = 1e-9        # optimize_pose_graph card vs CPU, relative, f64
+FLEET_SEGMENTS, FLEET_PERTURB = 4, 32   # B = 128 windows, F = 96, f32
+SFM_TOL = 1e-9       # initial SfM card vs CPU, relative, f64
+
 # kernel rows: (name, dtype) -> what the JSON line says of it
 KERNELS = {
     ("lane_cholesky_solve[f32]", torch.float32): dict(
@@ -124,6 +165,96 @@ KERNELS = {
         route="cuda", source="cerberus_tpu_torch/csrc/cholesky_solve.cu",
         replaces="cerberus_tpu/ops/pallas_kernels.py:53"),
 }
+
+
+class StreetStream:
+    """A keyframe stream of a street circuit, as the estimator's
+    keyframe_callback feeds the loop closer, made without simulating the
+    IMU: numpy only, from a seed.
+
+    Keyframe k lies `spacing * k` metres along the circuit of `sim_cfg`
+    (the simulator's `_path_street`) at the body height, level, heading
+    along the path. Landmarks follow the simulator's rule: `n_landmarks`
+    points at uniform places along one lap, offset uniformly within the
+    corridor's half-width and from -body_height to 2.5 m in height. The
+    odometry is a random walk on the true relative motion: each step's
+    translation gets N(0, sigma_p) per horizontal axis in the previous
+    keyframe's frame and its yaw N(0, sigma_yaw), so the odometric frame
+    drifts from the truth. A record carries, as keyframe_callback gives
+    them: t, the odometric position and orientation (a yaw quaternion),
+    the visible landmarks' ids and {id: (normalized left-camera
+    observation with `pix_noise` px of noise, world point in that
+    keyframe's drifted odometric frame)}, and the rendered 640x480 left
+    image (ImageRenderer over the keyframe poses). `truth` holds the true
+    positions."""
+
+    def __init__(self, n, sim_cfg=STREET, spacing=KF_SPACING, seed=None,
+                 sigma_p=ODO_SIGMA_P, sigma_yaw=ODO_SIGMA_YAW,
+                 pix_noise=KF_PIX_NOISE):
+        from cerberus_tpu_torch.data.simulator import _path_street, _rotz
+        c = sim_cfg
+        rng = np.random.default_rng(c.seed if seed is None else seed)
+        self.cfg = EstimatorConfig()
+        self.n = n
+        self.t = spacing * np.arange(n) / c.speed
+        x, y, *_, yaw = _path_street(self.t, c)
+        self.truth = np.stack([x, y, np.full(n, c.body_height)], -1)
+        W, H, r = c.street_w, c.street_h, c.street_corner_r
+        lap = 2 * (W - 2 * r) + 2 * (H - 2 * r) + 2 * np.pi * r
+        lx, ly, *_ = _path_street(rng.uniform(0, lap, c.n_landmarks)
+                                  / c.speed, c)
+        hw = c.corridor_halfwidth
+        self.lm = np.stack([lx, ly, np.full(c.n_landmarks, c.body_height)],
+                           -1) + np.stack([
+                               rng.uniform(-hw, hw, c.n_landmarks),
+                               rng.uniform(-hw, hw, c.n_landmarks),
+                               rng.uniform(-c.body_height, 2.5,
+                                           c.n_landmarks)], -1)
+        # odometry: the true relative motion with a random walk
+        p_odo, yaw_odo = [self.truth[0]], [yaw[0]]
+        for k in range(1, n):
+            Rt = _rotz(yaw[k - 1])
+            rel = Rt.T @ (self.truth[k] - self.truth[k - 1])
+            rel[:2] += rng.normal(size=2) * sigma_p
+            dyaw = yaw[k] - yaw[k - 1] + rng.normal() * sigma_yaw
+            p_odo.append(p_odo[-1] + _rotz(yaw_odo[-1]) @ rel)
+            yaw_odo.append(yaw_odo[-1] + dyaw)
+        self.p_odo, self.yaw_odo = np.array(p_odo), np.array(yaw_odo)
+        self.yaw = yaw
+        self.pix_sigma = pix_noise / 460.0
+        self._noise = np.random.default_rng(rng.integers(2 ** 31))
+        self.renderer = ImageRenderer(
+            dict(landmarks=self.lm, p=self.truth, R=_rotz(yaw)), self.cfg)
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        for k in range(self.n):
+            yield self.record(k)
+
+    def record(self, k):
+        """(t, p, q, ids, obs, img) of keyframe k, for
+        LoopCloser.add_keyframe."""
+        Rwc, twc = self.renderer.camera_pose(k, 0)
+        pc = (self.lm - twc) @ Rwc
+        z = pc[:, 2]
+        vis = (z > 0.5) & (z < 12.0)
+        uv = pc[:, :2] / np.maximum(z, 1e-6)[:, None]
+        vis &= (np.abs(uv[:, 0]) < 0.6) & (np.abs(uv[:, 1]) < 0.45)
+        uv = uv + self._noise.normal(size=uv.shape) * self.pix_sigma
+        # the true world -> keyframe k's odometric frame
+        d = self.yaw_odo[k] - self.yaw[k]
+        cd, sd = np.cos(d), np.sin(d)
+        Rd = np.array([[cd, -sd, 0.0], [sd, cd, 0.0], [0.0, 0.0, 1.0]])
+        t_d = self.p_odo[k] - Rd @ self.truth[k]
+        world = self.lm @ Rd.T + t_d
+        ids = [int(i) for i in np.nonzero(vis)[0]]
+        obs = {i: (uv[i].copy(), world[i].copy()) for i in ids}
+        q = np.array([np.cos(self.yaw_odo[k] / 2), 0.0, 0.0,
+                      np.sin(self.yaw_odo[k] / 2)])
+        return (float(self.t[k]), self.p_odo[k].copy(), q, ids, obs,
+                self.renderer.render(k, 0))
 
 
 def phase(name, t0, **numbers):
@@ -614,13 +745,15 @@ class FrameClock:
         est.input_image = timed
 
 
-def run_sequence(label, sim_cfg, dev, frames=STREAM_FRAMES):
+def run_sequence(label, sim_cfg, dev, frames=STREAM_FRAMES,
+                 keyframe_callback=None):
     """Replay `frames` camera frames of the sequence at full width on `dev`
-    with the launch counts reset just before; returns (replay output,
-    launches per kernel row, frames per second, median ms per NON_LINEAR
-    frame)."""
+    with the launch counts reset just before (keyframe_callback, if given,
+    set on the estimator); returns (replay output, launches per kernel row,
+    frames per second, median ms per NON_LINEAR frame)."""
     sim = simulate(sim_cfg)
     est = E.Estimator(EstimatorConfig(), device=dev)
+    est.keyframe_callback = keyframe_callback
     clock = FrameClock(est) if dev.type == "cuda" else None
     t0 = time.perf_counter()
     reset_counts()
@@ -659,7 +792,14 @@ def streaming_path(dev):
     card with that test's gates, then the first CHECK_FRAMES frames of A on
     the card and on the CPU. Returns (launches per path, numbers)."""
     seq_a = SEQ_A
-    out, counts_a, fps, ms = run_sequence("streaming A", seq_a, dev)
+    # keyframes -> pose graph (tests/test_posegraph.py::
+    # test_estimator_feeds_posegraph): A's keyframes stream into a pose
+    # graph on the card
+    pg = PoseGraph(min_overlap=5, min_gap=8, device=dev)
+    out, counts_a, fps, ms = run_sequence(
+        "streaming A", seq_a, dev,
+        keyframe_callback=lambda t, p, q, ids, obs: pg.add_keyframe(
+            p, _yaw_of_quat(q), ids))
     est = out["estimator"]
     check_launches("streaming A", out, counts_a)
     gates = {"solver_flag == NON_LINEAR": est.solver_flag == est.NON_LINEAR,
@@ -670,6 +810,7 @@ def streaming_path(dev):
                                                 < 0.02))}
     if not all(gates.values()):
         raise AssertionError(f"streaming A gates: {gates}")
+    keyframes_to_pose_graph(pg, est)
     numbers = dict(frames_per_s=fps, median_ms_per_nonlinear_frame=ms,
                    ate_rmse=out["ate_rmse"], drift_pct=out["drift_pct"],
                    keyframes=est.stats["keyframes"],
@@ -896,6 +1037,419 @@ def image_replay(dev, sim):
     return counts, nums
 
 
+def keyframes_to_pose_graph(pg, est):
+    """The pose graph fed by streaming A's keyframe_callback: gates of
+    tests/test_posegraph.py::test_estimator_feeds_posegraph."""
+    t0 = time.perf_counter()
+    gates = {"NON_LINEAR": est.solver_flag == est.NON_LINEAR,
+             "pg.n >= 5": pg.n >= 5,
+             "edges >= pg.n - 1": len(pg.edges) >= pg.n - 1}
+    pg.optimize(iters=4)
+    gates["finite after optimize(iters=4)"] = bool(
+        np.isfinite(pg.p[:pg.n]).all() and np.isfinite(pg.yaw[:pg.n]).all())
+    phase("keyframes -> pose graph", t0, nodes=pg.n, edges=len(pg.edges),
+          loop_edges=pg.n_loop_edges, stats=pg.stats)
+    if not all(gates.values()):
+        raise AssertionError(f"keyframes -> pose graph gates: {gates}")
+
+
+class GuardLog:
+    """Wraps a PoseGraph's optimize and _optimize_once: the host time of
+    each (the device's GN and the one fetch are inside _optimize_once), and
+    per optimize call (nodes, loop edges in, rollbacks, pruned edges and
+    device optimizes it added, the node positions after)."""
+
+    def __init__(self, pg):
+        self.calls, self.once_s, self.optimize_s = [], [], 0.0
+        opt, once = pg.optimize, pg._optimize_once
+
+        def timed_once(*a, **kw):
+            t = time.perf_counter()
+            once(*a, **kw)
+            self.once_s.append(time.perf_counter() - t)
+
+        def logged(*a, **kw):
+            before = dict(pg.stats)
+            loops = pg.n_loop_edges
+            t = time.perf_counter()
+            opt(*a, **kw)
+            self.optimize_s += time.perf_counter() - t
+            self.calls.append((pg.n, loops) + tuple(
+                pg.stats[k] - before[k] for k in
+                ("rollbacks", "pruned_edges", "optimizes")))
+            self.positions.append(pg.p[:pg.n].copy())
+
+        self.positions = []
+        pg._optimize_once, pg.optimize = timed_once, logged
+
+
+def loop_backend(dev):
+    """The loop back-end at full width on the card (LoopCloser defaults:
+    640x480 left images, 23x23 patches, 12x16 tiny images, exclude_last 40,
+    min_sim 0.5, optimize_every 10, seq/loop weights 100/10, Cauchy, a
+    512-node pool that grows) fed StreetStream's 889 keyframes (2.2 laps of
+    the street circuit): gates, counts, times. Then the recorded stream
+    replayed on the CPU for CPU_REPLAY_S, every guard decision compared, and
+    the final graph's optimize_pose_graph on the card against the CPU.
+    Returns (launches, numbers, the final pose graph)."""
+    t0 = time.perf_counter()
+    stream = StreetStream(STREET_KEYFRAMES)
+    phase("street stream set-up", t0, keyframes=len(stream),
+          landmarks=len(stream.lm))
+    t0 = time.perf_counter()
+    reset_counts()
+    closer = LoopCloser(EstimatorConfig(), record=True, device=dev)
+    log = GuardLog(closer.pg)
+    refused, kept, make_s, add_s = 0, [], 0.0, 0.0
+    for k in range(len(stream)):
+        t = time.perf_counter()
+        rec = stream.record(k)
+        t1 = time.perf_counter()
+        node = closer.add_keyframe(*rec)
+        add_s += time.perf_counter() - t1
+        make_s += t1 - t
+        refused += node == -1
+        if node >= 0:
+            kept.append(k)
+    t = time.perf_counter()
+    closer.finish()
+    add_s += time.perf_counter() - t
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    pg = closer.pg
+    gt = stream.truth[kept]
+    corr, odo = score(closer.corrected(), gt), score(closer.odometric(), gt)
+    finite = bool(np.isfinite(pg.p[:pg.n]).all()
+                  and np.isfinite(pg.yaw[:pg.n]).all())
+    nums = dict(keyframes=len(stream), nodes=pg.n, Nc=pg.Nc,
+                refused_for_capacity=refused, skipped=closer.kf_skipped,
+                loops_found=closer.loops_found,
+                loops_rejected=closer.loops_rejected,
+                seq_gated=closer.seq_gated, best_sim=closer.best_sim,
+                **pg.stats, corrected_ate_m=corr["ate_rmse"],
+                odometric_ate_m=odo["ate_rmse"],
+                corrected_drift_pct=corr["drift_pct"],
+                odometric_drift_pct=odo["drift_pct"],
+                ms_per_device_optimize=1e3 * float(np.mean(log.once_s)),
+                device_optimizes=len(log.once_s),
+                ms_per_optimize_call=1e3 * log.optimize_s
+                / max(len(log.calls), 1),
+                optimize_share=log.optimize_s / wall,
+                host_ms_per_keyframe=1e3 * (add_s - log.optimize_s)
+                / len(stream),
+                make_ms_per_keyframe=1e3 * make_s / len(stream),
+                phase_s=wall, launches=counts)
+    phase("loop back-end street", t0, **nums)
+    gates = {"no keyframe refused for capacity": refused == 0,
+             "loops_found >= 1": closer.loops_found >= 1,
+             "corrected ATE < odometric ATE":
+                 corr["ate_rmse"] < odo["ate_rmse"],
+             "node pool grown to 1024": pg.Nc == 1024,
+             "every state finite": finite}
+    if not all(gates.values()):
+        raise AssertionError(f"loop back-end street gates: {gates}")
+    nums["guard"] = loop_replay_on_cpu(closer, log)
+    nums["optimize_check"] = optimize_check(pg, dev)
+    return nums.pop("launches"), nums, pg
+
+
+def loop_replay_on_cpu(closer, log):
+    """The card's recorded keyframes through a LoopCloser on the CPU for
+    CPU_REPLAY_S seconds: every optimize call's guard decisions (rollbacks,
+    prunes, device optimizes) and counts compared with the card's, and the
+    node positions after each. Differences are printed, not hidden."""
+    t0 = time.perf_counter()
+    cpu = LoopCloser(EstimatorConfig(), device="cpu")
+    cpu_log = GuardLog(cpu.pg)
+    fed = 0
+    for rec in closer.records:
+        if time.perf_counter() - t0 > CPU_REPLAY_S:
+            break
+        cpu.add_keyframe_precomputed(rec)
+        fed += 1
+    n = len(cpu_log.calls)
+    differ = [(i, a, b) for i, (a, b) in
+              enumerate(zip(log.calls[:n], cpu_log.calls)) if a != b]
+    dp = max((float(np.abs(a - b).max()) for a, b in
+              zip(log.positions[:n], cpu_log.positions)
+              if a.shape == b.shape), default=0.0)
+    nums = dict(keyframes_replayed=fed, of=len(closer.records),
+                optimize_calls_compared=n,
+                guard_decisions_differ=len(differ),
+                max_abs_dp_after_optimize=dp,
+                cpu_ms_per_device_optimize=1e3 * float(np.mean(
+                    cpu_log.once_s)) if cpu_log.once_s else None)
+    phase("loop back-end guard replay on the CPU", t0, **nums)
+    for i, a, b in differ:
+        print(f"guard decision differs at optimize call {i}: card "
+              f"(nodes, loop edges, +rollbacks, +pruned, +optimizes) {a}, "
+              f"CPU {b}")
+    return nums
+
+
+def optimize_check(pg, dev):
+    """optimize_pose_graph of the final graph (Nc = 1024, the padded edge
+    pool) on the card and on the CPU, 8 iterations each, timed: PG_TOL."""
+    t0 = time.perf_counter()
+    args = (pg.p, pg.yaw) + pg.padded_edges()
+    kw = dict(robust_scale=pg.robust_scale, robust_kind=pg.robust_kind)
+
+    def run(device):
+        t = time.perf_counter()
+        p, yaw = optimize_pose_graph(*args, **kw, device=device)
+        out = torch.cat([p, yaw[:, None]], 1).cpu().numpy()
+        return out, (time.perf_counter() - t) * 1e3
+
+    run(dev)
+    card, card_ms = run(dev)
+    host, cpu_ms = run("cpu")
+    err = float(np.abs(card - host).max() / np.abs(host).max())
+    nums = dict(Nc=pg.Nc, edges=len(args[2]), card_ms=card_ms,
+                cpu_ms=cpu_ms, max_rel_err=err)
+    phase("loop back-end optimize check", t0, **nums)
+    if not err <= PG_TOL:
+        raise AssertionError(f"optimize_pose_graph card vs CPU: {err}")
+    return nums
+
+
+def fleet(dev):
+    """BASELINE config 5 at one card's batch: build_fleet(4 segments x 32
+    perturbations) = 128 windows at F = 96, f32, solved for ITERS LM
+    iterations through solve_fleet with the launches counted; gates of
+    tests/test_fleet.py; 8 windows cross-checked against the CPU; timed;
+    then the pooled calibration step from a common rho offset, against the
+    CPU. Returns (launches, numbers)."""
+    t0 = time.perf_counter()
+    states, datas, truths = build_fleet(n_segments=FLEET_SEGMENTS,
+                                        n_perturb=FLEET_PERTURB, device=dev)
+    torch.cuda.synchronize()
+    B = states.p.shape[0]
+    phase("build_fleet", t0, windows=B, F=datas.f_valid.shape[-1])
+    opts = SolveOptions(max_iters=ITERS)
+    t0 = time.perf_counter()
+    reset_counts()
+    res = solve_fleet(states, datas, truths, None, opts)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    cost0, cost = res.cost0.cpu().numpy(), res.cost.cpu().numpy()
+    err = res.traj_err.cpu().numpy()
+    phase("solve_fleet", t0, launches=counts,
+          median_traj_err_m=float(np.median(err)),
+          cost_reduced=int((cost < cost0).sum()))
+    if counts != {"lane_cholesky_solve[f32]": ITERS,
+                  "lane_cholesky_solve[f64]": 0, "cholesky_solve": 0}:
+        raise AssertionError(f"fleet: launches {counts}, want {ITERS} of "
+                             f"lane_cholesky_solve[f32] only")
+    gates = {"every cost < cost0": bool(np.all(cost < cost0)),
+             "median traj_err < 0.02 m": float(np.median(err)) < 0.02,
+             "finite": bool(np.isfinite(cost).all())}
+    if not all(gates.values()):
+        raise AssertionError(f"fleet gates: {gates}")
+
+    t0 = time.perf_counter()
+    head = lambda x: x[:CHECK_WINDOWS].cpu()
+    cpu = solve_fleet(*(fac.map_tensors(head, x)
+                        for x in (states, datas, truths)), None, opts)
+    np.testing.assert_allclose(cost[:CHECK_WINDOWS], cpu.cost.numpy(),
+                               rtol=1e-3, err_msg="fleet cost card vs CPU")
+    np.testing.assert_allclose(res.states.p[:CHECK_WINDOWS].cpu().numpy(),
+                               cpu.states.p.numpy(), rtol=0, atol=1e-3,
+                               err_msg="fleet p card vs CPU")
+    phase("fleet cross-check vs CPU", t0, windows=CHECK_WINDOWS)
+
+    def solve(i):
+        solve_fleet(states._replace(p=states.p + 1e-7 * i), datas, truths,
+                    None, opts)
+        torch.cuda.synchronize()
+
+    fleet_s = host_s(solve, 3)
+    nums = dict(windows=B, windows_solved_per_s=B / fleet_s,
+                median_traj_err_m=float(np.median(err)),
+                max_traj_err_m=float(err.max()))
+
+    # pooled calibration from a common 4 mm calf-length offset
+    t0 = time.perf_counter()
+    off = truths._replace(rho=truths.rho + 0.004)
+    new, dx, H, b = pooled_calibration_step(off, datas)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
+    _, dx_c, H_c, b_c = pooled_calibration_step(
+        fac.map_tensors(lambda x: x.cpu(), off),
+        fac.map_tensors(lambda x: x.cpu(), datas))
+    cpu_ms = (time.perf_counter() - t1) * 1e3
+    e0 = float((off.rho - truths.rho).abs().mean())
+    e1 = float((new.rho - truths.rho).abs().mean())
+    errs = {k: float((a.cpu() - c).abs().max() / c.abs().max())
+            for k, a, c in (("H", H, H_c), ("b", b, b_c), ("dx", dx, dx_c))}
+    nums.update(pooled_rho_err_before=e0, pooled_rho_err_after=e1,
+                pooled_card_ms=card_ms, pooled_cpu_ms=cpu_ms,
+                pooled_rel_err=errs)
+    phase("fleet", t0, **nums)
+    if not (e1 < e0 and max(errs.values()) < TOL):
+        raise AssertionError(f"pooled calibration: rho error {e0} -> {e1}, "
+                             f"card vs CPU {errs}")
+    return counts, nums
+
+
+def sfm_inputs(seed=5, NF=11, F=160, K=10):
+    """Equal inputs for the initial-SfM check at the estimator's window (11
+    frames, F = 160): tests/test_initial_sfm.py's constructions at that
+    size. Returns a dict of numpy arrays and the truths for the gates."""
+    rng = np.random.default_rng(seed)
+    f64 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float64)
+    rot = lambda v: lie.quat_to_rot(lie.so3_exp_quat(f64(v))).numpy()
+    quat = lambda v: lie.so3_exp_quat(f64(v)).numpy()
+    out = {}
+    # relative pose: F points, 0.15 px noise
+    X = rng.uniform([-3, -3, 4], [3, 3, 12], size=(F, 3))
+    R, t = rot(rng.normal(size=3) * 0.2), np.array([0.4, -0.1, 0.15])
+    pc0, pc1 = X, X @ R.T + t
+    n = 0.15 / 460.0
+    out["p0"] = pc0[:, :2] / pc0[:, 2:] + rng.normal(size=(F, 2)) * n
+    out["p1"] = pc1[:, :2] / pc1[:, 2:] + rng.normal(size=(F, 2)) * n
+    out["mask"] = (pc0[:, 2] > 0) & (pc1[:, 2] > 0)
+    out["R"], out["t"] = R, t
+    # ex rotation: K rotation pairs
+    q_ic = quat([0.2, -0.5, 0.15])
+    qb = np.stack([quat(rng.normal(size=3) * 0.2) for _ in range(K)])
+    qi = lie.quat_conj(f64(q_ic))
+    out["q_imu"] = qb
+    out["q_cam"] = lie.quat_mul(qi, lie.quat_mul(f64(qb), f64(q_ic))).numpy()
+    out["q_ic"] = q_ic
+    # global SfM window: NF frames on an arc, F points
+    ts = np.linspace(0, 1, NF)
+    centers = np.stack([2.0 * ts, 0.3 * np.sin(2 * ts), 0 * ts], -1)
+    Rs = np.stack([rot([0.02 * k, 0.03 * k, 0.1 * k]) for k in range(NF)])
+    Xw = rng.uniform([-4, -4, 3], [8, 4, 10], size=(F, 3))
+    f_pts, f_obs = np.zeros((F, NF, 2)), np.zeros((F, NF), bool)
+    for i in range(NF):
+        pc = (Xw - centers[i]) @ Rs[i]
+        ok = pc[:, 2] > 0.5
+        f_pts[ok, i] = pc[ok, :2] / pc[ok, 2:3]
+        f_obs[:, i] = ok
+    out["f_pts"] = f_pts + rng.normal(size=f_pts.shape) * (0.3 / 460.0)
+    out["f_obs"] = f_obs
+    out["q_rel"] = lie.rot_to_quat(f64(Rs[0].T @ Rs[-1])).numpy()
+    out["p_rel"] = Rs[0].T @ (centers[-1] - centers[0])
+    out["p_gt"], out["X_gt"] = (centers - centers[0]) @ Rs[0], \
+        (Xw - centers[0]) @ Rs[0]
+    # visual-IMU alignment: K intervals of 0.3 s, scale 2.7
+    dt, g_w, s_true = np.full(K, 0.3), np.array([0.0, 0.0, 9.805]), 2.7
+    q = [np.array([1.0, 0, 0, 0])]
+    for _ in range(K):
+        q.append(lie.quat_mul(f64(q[-1]), f64(quat(
+            rng.normal(size=3) * 0.15))).numpy())
+    q = np.stack(q)
+    v = rng.normal(size=(K + 1, 3)) * 0.5
+    p = np.zeros((K + 1, 3))
+    dp, dv = np.zeros((K, 3)), np.zeros((K, 3))
+    Rb = lie.quat_to_rot(f64(q)).numpy()
+    for k in range(K):
+        a_w = (v[k + 1] - v[k]) / dt[k]
+        p[k + 1] = p[k] + v[k] * dt[k] + 0.5 * a_w * dt[k] ** 2
+        dp[k] = Rb[k].T @ (p[k + 1] - p[k] - v[k] * dt[k]
+                           + 0.5 * g_w * dt[k] ** 2)
+        dv[k] = Rb[k].T @ (v[k + 1] - v[k] + g_w * dt[k])
+    tic = np.array([0.1, 0.02, -0.03])
+    out["align"] = ((p + np.einsum("kij,j->ki", Rb, tic)) / s_true, q, dp,
+                    dv, dt, tic, np.eye(3))
+    out["g_w"], out["s_true"] = g_w, s_true
+    # gyro / leg bias: K preintegrations' rotation and leg blocks
+    from cerberus_tpu_torch.ops.preintegration import ILPreint
+    out["preints"] = [ILPreint(*(f64(x) for x in (
+        np.zeros(3), quat(rng.normal(size=3) * 0.1), np.zeros(3),
+        rng.normal(size=(4, 3)) * 0.05, np.zeros(3),
+        rng.normal(size=(31, 31)) * 0.1, np.eye(31), 0.1, np.zeros(3),
+        np.zeros(3), np.full(4, 0.21), np.ones(4), np.ones(4), np.zeros(4),
+        np.zeros(4), np.zeros((4, 1)), np.zeros(4)))) for _ in range(K)]
+    out["q_frames"] = np.stack([quat(rng.normal(size=3) * 0.3)
+                                for _ in range(K + 1)])
+    out["p_frames"] = rng.normal(size=(K + 1, 3))
+    return out
+
+
+def sfm_check(dev):
+    """The initial SfM and alignment on the card and on the CPU on equal
+    inputs at the estimator's window (sfm_inputs): relative_pose on one
+    hypothesis set (128, drawn on the CPU), calibrate_ex_rotation,
+    global_sfm, visual_imu_alignment, solve_gyroscope_bias and
+    solve_gyro_leg_bias within SFM_TOL relative (R, t and quaternions up to
+    sign); then tests/test_initial_sfm.py's accuracy gates on the card's
+    results, the relative pose from the card's own draw. Returns (launches,
+    numbers)."""
+    t0 = time.perf_counter()
+    x = sfm_inputs()
+    reset_counts()
+    idx = isfm.draw_hypotheses(torch.as_tensor(x["mask"]), 128, 0)
+    cpu = torch.device("cpu")
+
+    def run(d):
+        t = time.perf_counter()
+        on = lambda a: torch.as_tensor(np.asarray(a), device=d)
+        rel = isfm.relative_pose_from_hypotheses(
+            idx.to(d), on(x["p0"]), on(x["p1"]), on(x["mask"]))
+        ex = isfm.calibrate_ex_rotation(x["q_cam"], x["q_imu"],
+                                        np.ones(len(x["q_cam"]), bool),
+                                        device=d)
+        sfm = isfm.global_sfm(0, x["q_rel"], x["p_rel"], x["f_pts"],
+                              x["f_obs"], device=d)
+        al = isfm.visual_imu_alignment(*x["align"], 9.805, device=d)
+        gb = ialign.solve_gyroscope_bias(x["q_frames"], x["preints"],
+                                         device=d)
+        glb = ialign.solve_gyro_leg_bias(x["q_frames"], x["p_frames"],
+                                         x["preints"], device=d)
+        out = {"R": rel[0], "t": rel[1], "inliers": rel[2], "q_ic": ex[0],
+               "ex_ok": ex[1], "sfm_q": sfm.q, "sfm_p": sfm.p,
+               "sfm_pts": sfm.pts, "sfm_pts_ok": sfm.pts_ok,
+               "sfm_ok": sfm.ok, "v": al[0], "g": al[1], "s": al[2],
+               "al_ok": al[3], "bg": gb, "bg2": glb[0], "rho": glb[1]}
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        return out, (time.perf_counter() - t) * 1e3
+
+    run(dev)
+    card, card_ms = run(dev)
+    counts = read_counts()
+    host, cpu_ms = run(cpu)
+    for k in ("inliers", "ex_ok", "sfm_pts_ok", "sfm_ok", "al_ok"):
+        if not np.array_equal(card[k], host[k]):
+            raise AssertionError(f"sfm check: {k} differs, card vs CPU")
+    sign = np.sign(np.sum(card["sfm_q"] * host["sfm_q"], axis=1))[:, None]
+    card["sfm_q"] = card["sfm_q"] * sign
+    ok = host["sfm_pts_ok"]
+    card["sfm_pts"], host["sfm_pts"] = card["sfm_pts"][ok], host["sfm_pts"][ok]
+    errs = {k: float(np.abs(card[k] - host[k]).max()
+                     / max(np.abs(host[k]).max(), 1e-300))
+            for k in card if card[k].dtype.kind == "f"}
+    # the accuracy gates, on the card's results
+    Re, te, inl = (a.cpu().numpy() for a in isfm.relative_pose_ransac(
+        x["p0"], x["p1"], x["mask"], seed=0, device=dev))
+    ang = np.degrees(np.arccos(np.clip((np.trace(Re @ x["R"].T) - 1) / 2,
+                                       -1, 1)))
+    cos = abs(te @ x["t"]) / np.linalg.norm(te) / np.linalg.norm(x["t"])
+    gates = {"relative pose (own draw) < 1 deg": ang < 1.0,
+             "translation cos > 0.995": cos > 0.995,
+             "ex rotation |q . q_ic| > 0.9999":
+                 abs(float(card["q_ic"] @ x["q_ic"])) > 0.9999,
+             "sfm ok": bool(card["sfm_ok"]),
+             "sfm positions < 0.05 m": float(np.linalg.norm(
+                 card["sfm_p"] - x["p_gt"], axis=1).max()) < 0.05,
+             "sfm points median < 0.05 m": float(np.median(np.linalg.norm(
+                 card["sfm_pts"] - x["X_gt"][ok], axis=1))) < 0.05,
+             "sfm points >= 0.8 F": ok.sum() >= 0.8 * len(ok),
+             "scale within 2 %": abs(float(card["s"]) - x["s_true"])
+             < 0.02 * x["s_true"],
+             "gravity within 0.05": float(np.linalg.norm(
+                 card["g"] - x["g_w"])) < 0.05}
+    phase("sfm check", t0, card_ms=card_ms, cpu_ms=cpu_ms,
+          max_rel_err=max(errs.values()), worst=max(errs, key=errs.get),
+          own_draw_inliers=int(inl.sum()), of=len(inl))
+    if not (max(errs.values()) <= SFM_TOL and all(gates.values())):
+        raise AssertionError(f"sfm check: card vs CPU {errs}, gates {gates}")
+    return counts, dict(card_ms=card_ms, cpu_ms=cpu_ms,
+                        max_rel_err=max(errs.values()))
+
+
 def profile_spans(label, fn, spans, total):
     """Run fn() once under torch.profiler; print host ms per span (summed
     over its calls), the device time of the kernels, and the top kernels."""
@@ -976,6 +1530,27 @@ def profile_image_frame(dev, sim, frame=13):
           f"{'NON_LINEAR' if est.solver_flag == est.NON_LINEAR else 'INITIAL'}")
 
 
+def profile_pose_graph(pg, unprofiled_ms):
+    """One optimize_pose_graph of the loop back-end's final graph (8
+    iterations at its Nc) under torch.profiler: host ms of its assembly and
+    LU spans and the device time of their kernels."""
+    args = (pg.p, pg.yaw) + pg.padded_edges()
+    dev = torch.device("cuda")
+    args = tuple(torch.as_tensor(np.asarray(a), device=dev) for a in args)
+
+    def one():
+        p, yaw = optimize_pose_graph(*args, robust_kind=pg.robust_kind,
+                                     device=dev)
+        return torch.cat([p, yaw[:, None]], 1).cpu()
+
+    one()
+    _, device_ms = profile_spans(f"pose graph optimize (Nc={pg.Nc})", one,
+                                 ("posegraph_assemble", "posegraph_solve"),
+                                 unprofiled_ms)
+    print(f"profile pose graph optimize: unprofiled {unprofiled_ms:.3f} ms, "
+          f"busy_share_unprofiled={device_ms / unprofiled_ms:.4f}")
+
+
 def profile_runs(problem, batched_s, dev):
     """One batched solve, then one streaming step (mode 'old', the first
     step of a short full-width replay, with the fold of interval 9), each
@@ -1025,7 +1600,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile one batched solve, one "
-                             "streaming step and one image replay frame")
+                             "streaming step, one image replay frame and "
+                             "one pose-graph optimize")
     args = parser.parse_args()
     dev, smi = environment()
     build()
@@ -1040,8 +1616,15 @@ def main():
     launches["image replay A"], nums = image_replay(dev, sim_a)
     image.update(nums)
     print("image replay: " + json.dumps(image))
+    launches["loop back-end street"], loop, loop_pg = loop_backend(dev)
+    print("loop back-end: " + json.dumps(loop))
+    launches["fleet"], fleet_nums = fleet(dev)
+    print("fleet: " + json.dumps(fleet_nums))
+    launches["sfm check"], sfm = sfm_check(dev)
+    print("sfm: " + json.dumps(sfm))
     if args.profile:
         profile_runs(problem, batched_s, dev)
+        profile_pose_graph(loop_pg, loop["optimize_check"]["card_ms"])
     print("kernels: " + " ".join(
         f"{name}={counts[name]} ({path})"
         for name, _ in KERNELS for path, counts in launches.items()))

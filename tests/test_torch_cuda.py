@@ -2,7 +2,9 @@
 wrappers refuse what the kernels do not take; neither the LM loop, the
 streaming estimator's per-frame step, the tracker's frame program nor the
 EKF step ever waits for the device; the tracker's and the EKF's fetches
-wait for their own streams only; the device tracker runs without OpenCV.
+wait for their own streams only; the device tracker runs without OpenCV;
+the pose graph's Gauss-Newton queues without a wait and agrees with the
+CPU at 512 and 1024 nodes; the fleet solve reaches the lane kernel.
 (chip_smoke.py holds the kernels to their plain versions and the card's
 solve, replays, tracker and EKF to the CPU's.) Every test here but the last
 needs a CUDA device and skips without one.
@@ -348,6 +350,80 @@ def test_fetches_do_not_wait_for_other_streams(cuda):
     torch.cuda.synchronize()
     assert still_busy, f"the default stream finished first ({elapsed:.3f} s)"
     assert len(feats) > 5 and contacts.shape == (4,)
+
+
+def _pose_graph_inputs(N, n_loops=40, seed=0):
+    """A drifting chain of N - 8 nodes on a circle, padded to N nodes and
+    2048 edges as PoseGraph pads them, with n_loops noisy loop edges under
+    the robust loss. Returns numpy arrays."""
+    from cerberus_tpu_torch.loop.posegraph import PoseGraph
+
+    rng = np.random.default_rng(seed)
+    pg = PoseGraph(capacity_nodes=N, auto_detect=False, device="cpu")
+    n = N - 8
+    ang = np.linspace(0, 4 * np.pi, n)
+    for k in range(n):
+        pg.add_keyframe(np.array([10 * np.cos(ang[k]), 10 * np.sin(ang[k]),
+                                  0.0]) + rng.normal(size=3) * 0.05 * k / n,
+                        ang[k] + np.pi / 2 + rng.normal() * 0.01)
+    for _ in range(n_loops):
+        i = int(rng.integers(0, n // 2))
+        j = i + n // 2
+        pg.add_loop_edge(i, j, rel_p=rng.normal(size=3) * 0.1,
+                         rel_yaw=float(rng.normal() * 0.05), weight=10.0)
+    return (pg.p, pg.yaw) + pg.padded_edges()
+
+
+def test_optimize_pose_graph_never_waits_for_the_device(cuda):
+    """The pose graph's Gauss-Newton iterations queue on the card with no
+    read-back or wait until the caller's one fetch."""
+    from cerberus_tpu_torch.loop.posegraph import optimize_pose_graph
+
+    args = [torch.as_tensor(a, device=cuda) for a in _pose_graph_inputs(512)]
+    optimize_pose_graph(*args, iters=2, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p, yaw = optimize_pose_graph(*args, iters=4, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out = torch.cat([p, yaw[:, None]], 1).cpu()
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("N", [512, 1024])
+def test_optimize_pose_graph_card_matches_cpu(cuda, N):
+    """The same call on the card and on the CPU: 1e-9 relative (f64)."""
+    from cerberus_tpu_torch.loop.posegraph import optimize_pose_graph
+
+    args = _pose_graph_inputs(N)
+    kw = dict(iters=8, robust_kind="cauchy")
+    pc, yc = optimize_pose_graph(*args, **kw, device=cuda)
+    ph, yh = optimize_pose_graph(*args, **kw, device="cpu")
+    for a, b in ((pc, ph), (yc, yh)):
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) < 1e-9
+    assert float((ph - torch.as_tensor(args[0])).abs().max()) > 1e-3
+
+
+def test_solve_fleet_reaches_the_lane_kernel(cuda):
+    """solve_fleet on the card launches the f32 lane-Cholesky kernel once
+    per LM iteration for the whole batch, never its plain version."""
+    from cerberus_tpu_torch.ops.solver import SolveOptions
+    from cerberus_tpu_torch.parallel.fleet import build_fleet, solve_fleet
+
+    states, datas, truths = build_fleet(n_segments=1, n_perturb=3, F=16,
+                                        sim_duration=4.0, device=cuda)
+    plain = lc.lane_cholesky_solve_plain
+    lc.lane_cholesky_solve_plain = None      # any call would raise
+    before = lc.LAUNCHES_BY_DTYPE[torch.float32]
+    try:
+        res = solve_fleet(states, datas, truths, None,
+                          SolveOptions(max_iters=3))
+    finally:
+        lc.lane_cholesky_solve_plain = plain
+    torch.cuda.synchronize()
+    assert lc.LAUNCHES_BY_DTYPE[torch.float32] - before == 3
+    assert torch.isfinite(res.cost).all() and (res.cost <= res.cost0).all()
 
 
 def test_device_tracker_without_opencv(cuda, monkeypatch):

@@ -65,6 +65,32 @@ NO_JAX_SCRIPT = textwrap.dedent("""
         device="cpu")
     assert out["tracker"].stats["frames"] == 2
     assert out["estimator"].frame_count == 2
+    import numpy as np
+    from cerberus_tpu_torch.estimator import initial_sfm
+    from cerberus_tpu_torch.loop import PoseGraph
+    from cerberus_tpu_torch.loop.closer import LoopCloser
+    from cerberus_tpu_torch.parallel import make_mesh, pooled_calibration_step
+    from cerberus_tpu_torch.parallel.fleet import build_fleet, solve_fleet
+    pg = PoseGraph(min_overlap=5, min_gap=8, capacity_nodes=8, device="cpu")
+    for k in range(12):
+        pg.add_keyframe(np.array([0.5 * k, 0.0, 0.0]), 0.0,
+                        range(100, 130) if k in (0, 11) else ())
+    pg.optimize(iters=2)
+    assert pg.n_loop_edges == 1 and pg.stats["optimizes"] >= 1
+    assert LoopCloser(device="cpu").pg.device == torch.device("cpu")
+    turns = np.array([[0.9, 0.3, 0.1, 0.0], [0.9, 0.0, 0.3, 0.2],
+                      [0.9, 0.2, 0.0, 0.3]])
+    turns /= np.linalg.norm(turns, axis=1, keepdims=True)
+    q, ok = initial_sfm.calibrate_ex_rotation(turns, turns, np.ones(3, bool),
+                                              device="cpu")
+    assert torch.allclose(q, torch.tensor([1.0, 0, 0, 0], dtype=q.dtype))
+    states, datas, truths = build_fleet(n_segments=1, n_perturb=2, F=8,
+                                        sim_duration=2.0, device="cpu")
+    res = solve_fleet(states, datas, truths, make_mesh(2, device="cpu"),
+                      SolveOptions(max_iters=1))
+    assert torch.isfinite(res.cost).all()
+    new, dx, H, b = pooled_calibration_step(states, datas)
+    assert torch.isfinite(dx).all()
     assert not any(name == "jax" or name.startswith(("jax.", "jaxlib"))
                    or name.startswith("cerberus_tpu.")
                    for name, mod in sys.modules.items() if mod is not None)
@@ -115,6 +141,37 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         replay({"t": np.zeros(1)})
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_loop_sfm_parallel_entry_points_default_to_cuda():
+    """The loop back-end's, the initial SfM's and the parallel modules'
+    entry points ask for the card too: without device= each raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cerberus_tpu_torch.estimator import initial_alignment as al
+    from cerberus_tpu_torch.estimator import initial_sfm as sfm
+    from cerberus_tpu_torch.loop import PoseGraph, optimize_pose_graph
+    from cerberus_tpu_torch.loop.closer import LoopCloser
+    from cerberus_tpu_torch.parallel import make_mesh
+    from cerberus_tpu_torch.parallel.fleet import build_fleet
+
+    z3, z = np.zeros((2, 3)), np.zeros(2)
+    q = np.tile([1.0, 0, 0, 0], (2, 1))
+    for make in (PoseGraph, LoopCloser, build_fleet, make_mesh,
+                 lambda: optimize_pose_graph(z3, z, [0], [1], z3[:1], z[:1],
+                                             z[:1], [True]),
+                 lambda: sfm.relative_pose_ransac(z3[:, :2], z3[:, :2],
+                                                  [True, True]),
+                 lambda: sfm.calibrate_ex_rotation(q, q, [True, True]),
+                 lambda: sfm.global_sfm(0, q[0], z3[0], np.zeros((4, 2, 2)),
+                                        np.ones((4, 2), bool)),
+                 lambda: sfm.visual_imu_alignment(z3, q, z3[:1], z3[:1],
+                                                  z[:1], z3[0], np.eye(3),
+                                                  9.8),
+                 lambda: al.solve_gyroscope_bias(q, []),
+                 lambda: al.solve_gyro_leg_bias(q, z3, [])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
 
 
 def test_image_entry_points_default_to_cuda():

@@ -146,6 +146,8 @@ def port_run(sim):
     est = test.Estimator(dataclasses.replace(tC.EstimatorConfig(), **KW),
                          device="cpu")
     rec["est"] = est
+    rec["keyframes"] = []
+    est.keyframe_callback = lambda *kf: rec["keyframes"].append(kf)
     test._streaming_step = spy
     try:
         out = treplay(sim, est=est, max_frames=FRAMES)
@@ -395,6 +397,42 @@ def test_replay_matches_jax(sim, port_run):
     assert tstats["keyframes"] < FRAMES
     assert_close("replay.ate_rmse", tout["ate_rmse"], jout["ate_rmse"], 0,
                  1e-8)
+
+
+def test_keyframe_stream_matches_jax(sim, port_run):
+    """The keyframes the estimator hands the loop back-end
+    (keyframe_callback, on every MARGIN_OLD slide) in the short replay:
+    the same keyframes, each with equal t, feature ids and which features
+    carry a world point; p, q, the normalized observations and the world
+    points within 1e-8."""
+    _, rec = port_run
+    got = rec["keyframes"]
+    want = []
+    est = jest.Estimator(dataclasses.replace(jConfig(), **KW),
+                         use_native=False)
+    est.keyframe_callback = lambda *kf: want.append(kf)
+    jreplay(sim, est=est, max_frames=FRAMES)
+    assert len(got) == len(want) >= 1
+    worst = {"p": 0.0, "q": 0.0, "uv": 0.0, "world": 0.0}
+    for (t1, p1, q1, ids1, obs1), (t2, p2, q2, ids2, obs2) in zip(got, want):
+        assert t1 == t2 and list(ids1) == list(ids2)
+        assert sorted(obs1) == sorted(obs2) == sorted(ids1)
+        for name, a, b in (("p", p1, p2), ("q", q1, q2)):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-8, err_msg=name)
+            worst[name] = max(worst[name], float(np.abs(a - b).max()))
+        for fid in ids1:
+            (uv1, w1), (uv2, w2) = obs1[fid], obs2[fid]
+            assert (w1 is None) == (w2 is None), fid
+            np.testing.assert_allclose(uv1, uv2, rtol=0, atol=1e-8)
+            worst["uv"] = max(worst["uv"], float(np.abs(uv1 - uv2).max()))
+            if w1 is not None:
+                np.testing.assert_allclose(w1, w2, rtol=0, atol=1e-8)
+                worst["world"] = max(worst["world"],
+                                     float(np.abs(w1 - w2).max()))
+    assert any(w is not None for kf in got for _, w in kf[4].values())
+    print(f"PORT_DIFF keyframe_callback ({len(got)} keyframes, "
+          f"{sum(len(kf[3]) for kf in got)} features) max_abs " + " ".join(
+              f"{k}={v:.3e}" for k, v in worst.items()))
 
 
 def test_replay_with_stale_imu(sim):
