@@ -6,7 +6,12 @@ factors, structured Gauss-Newton assembly), its batched Levenberg-Marquardt
 solve and the per-frame streaming estimator (`estimator/estimator.py`,
 `data/replay.py`), the image front-end and legged EKF (`frontend/`), the
 loop-closure back-end (`loop/`), the initial SfM and the batched, pooled
-and fleet solves (`parallel/`), on torch tensors. The solve's dense
+(also across processes) and fleet solves (`parallel/`), on torch tensors;
+and the runtime around them: logged data (`data/rosbag.py`,
+`data/log_adapter.py`), the replay command line
+(`python -m cerberus_tpu_torch.data.replay`), the C++ sensor sync and CSV
+writer (`native.py`, built with g++), metrics, checkpoints, profiling and
+plots (`utils/`). The solve's dense
 Cholesky step is a hand-written CUDA kernel for Hopper
 (`csrc/lane_cholesky.cu`, f32 and f64),
 as is the damped Cholesky solve of `ops/cholesky_solve.py`

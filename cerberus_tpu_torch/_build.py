@@ -9,6 +9,11 @@ use, an unchanged one is loaded as it is. What `nvcc` printed (with
 beside the library as `lib<name>-<hash>.log`.
 `torch.utils.cpp_extension` is not used: a source that includes PyTorch's
 headers takes minutes to compile, a plain C one seconds.
+
+The native sensor runtime `native/sensor_sync.cpp` (at the repository's
+root, shared with the JAX package) is built the same way with `g++`, into
+`build/cerberus_tpu_torch/libsensor_sync-<hash>.so` (`build_native`); the
+prebuilt `native/libsensor_sync.so` beside it is never loaded.
 """
 
 from __future__ import annotations
@@ -22,6 +27,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cerberus_tpu_torch"
+NATIVE_SRC = (Path(__file__).resolve().parent.parent / "native"
+              / "sensor_sync.cpp")
+GXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -34,24 +42,42 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its library exists; returns its path."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [src, *sorted(CSRC.glob("*.cuh"))]:
+def _compile(compiler: list, flags: list, sources: list, name: str) -> Path:
+    """lib<name>-<hash>.so of sources[0] (the others: headers it includes),
+    compiled unless it exists; a failed compile raises RuntimeError."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sources:
         h.update(path.read_bytes())
     lib = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        out = subprocess.run([*compiler, *flags, "-o", str(tmp),
+                              str(sources[0])],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                              text=True)
         if out.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{out.stdout}")
+            raise RuntimeError(f"{compiler[0]} failed for {sources[0].name}:"
+                               f"\n{out.stdout}")
         lib.with_suffix(".log").write_text(out.stdout)
         os.replace(tmp, lib)
     return lib
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless its library exists; returns its path."""
+    return _compile([_nvcc()], NVCC_FLAGS,
+                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))], name)
+
+
+def build_native() -> Path:
+    """Compile native/sensor_sync.cpp with g++ unless its library exists;
+    returns its path. Raises RuntimeError if g++ is missing or fails."""
+    gxx = os.environ.get("CXX") or shutil.which("g++")
+    if not gxx:
+        raise RuntimeError("g++ not found on PATH: the native sensor sync "
+                           "cannot be built")
+    return _compile([gxx], GXX_FLAGS, [NATIVE_SRC], "sensor_sync")
 
 
 def build_log(name: str) -> str:

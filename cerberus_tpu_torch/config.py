@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 
@@ -249,3 +250,59 @@ class EstimatorConfig:
 
     def replace(self, **kw) -> "EstimatorConfig":
         return dataclasses.replace(self, **kw)
+
+
+def load_yaml(path: str) -> EstimatorConfig:
+    """Load a reference-style YAML config file into an EstimatorConfig.
+
+    Accepts the reference's key names (config/a1_config/*.yaml). OpenCV-matrix
+    entries are parsed from their `data` lists.
+    """
+    import yaml  # lazy: only needed when loading files
+
+    with open(path) as f:
+        text = f.read()
+    # strip the %YAML:1.0 directive + opencv tags that pyyaml rejects
+    lines = [ln for ln in text.splitlines() if not ln.startswith("%YAML")]
+    text = "\n".join(lines).replace("!!opencv-matrix", "")
+    raw: dict[str, Any] = yaml.safe_load(text)
+
+    def mat44(key):
+        if key not in raw:
+            return None
+        d = raw[key]["data"]
+        return tuple(tuple(d[r * 4 + c] for c in range(4)) for r in range(4))
+
+    noise_keys = {f.name for f in dataclasses.fields(NoiseConfig)}
+    noise = NoiseConfig(**{k: raw[k] for k in noise_keys if k in raw})
+    robot = GO1 if raw.get("robot_type", "a1") == "go1" else A1
+    if "lower_leg_length" in raw:
+        robot = dataclasses.replace(robot, lower_leg_length=raw["lower_leg_length"])
+
+    kw: dict[str, Any] = dict(robot=robot, noise=noise)
+    direct = {
+        "use_leg_odom": "use_leg_odom", "optimize_leg_bias": "optimize_leg_bias",
+        "contact_sensor_type": "contact_sensor_type",
+        "estimate_extrinsic": "estimate_extrinsic", "estimate_td": "estimate_td",
+        "td": "td", "g_norm": "g_norm", "max_solver_time": "max_solver_time",
+        "max_num_iterations": "max_num_iterations",
+        "keyframe_parallax": "keyframe_parallax", "max_cnt": "max_cnt",
+        "min_dist": "min_dist", "f_threshold": "F_threshold",
+        "flow_back": "flow_back", "image_width": "image_width",
+        "image_height": "image_height", "num_of_cam": "num_of_cam",
+    }
+    for attr, key in direct.items():
+        if key in raw:
+            v = raw[key]
+            if attr in ("use_leg_odom", "optimize_leg_bias", "estimate_extrinsic",
+                        "estimate_td", "flow_back"):
+                v = bool(v)
+            kw[attr] = v
+    if "imu" in raw:
+        kw["use_imu"] = bool(raw["imu"])
+    if mat44("body_T_cam0") is not None:
+        kw["body_T_cam0"] = mat44("body_T_cam0")
+    if mat44("body_T_cam1") is not None:
+        kw["body_T_cam1"] = mat44("body_T_cam1")
+    kw["stereo"] = raw.get("num_of_cam", 2) == 2
+    return EstimatorConfig(**kw)

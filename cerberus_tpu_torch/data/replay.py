@@ -1,6 +1,7 @@
-"""Replay driver: stream a simulated sequence through the estimator and
-score the trajectory (port of `cerberus_tpu/data/replay.py::replay`,
-`replay_images`, `score` and `_PyCsv`).
+"""Replay driver: stream a simulated sequence or a logged dataset through
+the estimator and score the trajectory (port of
+`cerberus_tpu/data/replay.py`: `replay`, `replay_images`, `score`, `_PyCsv`
+and the command line `_main`).
 
 `replay` streams the simulator's output sample by sample through
 `Estimator` (500 Hz IMU+leg ticks, ideal stereo features at each camera
@@ -13,6 +14,11 @@ scored against ground truth: ATE RMSE and drift % of the distance traveled.
     from cerberus_tpu_torch.data.replay import replay
     out = replay(simulate(SimConfig(duration=3.0, seed=5)), max_frames=20,
                  device="cpu")   # or the default "cuda"
+
+From the shell, a schema-v1 dataset (data/log_adapter.py) on the card:
+
+    python -m cerberus_tpu_torch.data.replay --dataset DIR --images \
+        --csv out.csv --metrics metrics.jsonl --max-frames 20
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import time
 
 import numpy as np
 
+from cerberus_tpu_torch import native
 from cerberus_tpu_torch.config import EstimatorConfig
 from cerberus_tpu_torch.estimator.estimator import Estimator
 
@@ -55,11 +62,16 @@ def _proprio_tick(est, ekf, sim, k):
 
 
 class _Trajectory:
-    """The published NON_LINEAR poses of a replay, and its CSV rows."""
+    """The published NON_LINEAR poses of a replay, and its CSV rows (written
+    by the native CsvWriter when the estimator runs the native sync, as the
+    JAX package writes them when its library is built; the same bytes)."""
 
-    def __init__(self, csv_path):
+    def __init__(self, csv_path, est):
         self.t, self.p, self.q, self.gt = [], [], [], []
-        self.writer = _PyCsv(csv_path, CSV_HEADER) if csv_path else None
+        self.writer = None
+        if csv_path:
+            self.writer = (native.CsvWriter(csv_path, CSV_HEADER)
+                           if est.use_native else _PyCsv(csv_path, CSV_HEADER))
 
     def after_frame(self, est, ekf, sim, k):
         if est.solver_flag != Estimator.NON_LINEAR:
@@ -114,7 +126,7 @@ def replay(sim: dict, cfg: EstimatorConfig | None = None,
     if max_frames is not None:
         cam_idx = set(sorted(cam_idx)[:max_frames])
 
-    traj = _Trajectory(csv_path)
+    traj = _Trajectory(csv_path, est)
     for k in range(len(t)):
         _proprio_tick(est, ekf, sim, k)
         if k in cam_idx:
@@ -194,7 +206,7 @@ def replay_images(sim: dict, cfg=None, est: Estimator | None = None,
         feats = tracker.track(t[k], img0, img1)
         return feats, (t1 - t0) * 1000, (time.perf_counter() - t1) * 1000
 
-    traj = _Trajectory(csv_path)
+    traj = _Trajectory(csv_path, est)
     track_ms = render_ms = 0.0
     cam_order = sorted(cam_idx)
     nxt = {cam_order[i]: cam_order[i + 1] for i in range(len(cam_order) - 1)}
@@ -281,3 +293,113 @@ def score(est_p: np.ndarray, gt_p: np.ndarray) -> dict:
     drift = 100.0 * final_err / max(dist, 1e-9)
     return dict(ate_rmse=ate, drift_pct=drift, distance=dist,
                 final_err=final_err, yaw_align_deg=float(np.degrees(th)))
+
+
+def _main(argv=None):
+    """CLI replay driver — the reference's `roslaunch vilo run_*_bag_vilo`
+    equivalent (launch/dataset/*.launch): stream a logged dataset (or a
+    synthetic run) through the full estimator, f64, on the card (or the CPU
+    when asked), and report drift/ATE as one JSON line. Returns replay()'s
+    (or replay_images()') dict.
+
+    Examples (python -m cerberus_tpu_torch.data.replay ...):
+      ... --dataset /data/street_v1 --images
+      ... --sim 30 --path street --csv out.csv --device cpu
+    """
+    import argparse
+    import json
+
+    from cerberus_tpu_torch.config import load_yaml
+
+    ap = argparse.ArgumentParser(description=_main.__doc__)
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--dataset", help="schema-v1 dataset directory "
+                                       "(data/log_adapter.py)")
+    src.add_argument("--sim", type=float, metavar="SECONDS",
+                     help="synthetic run of this duration instead of a log")
+    ap.add_argument("--config", help="reference-style YAML config "
+                                     "(defaults to A1-shaped defaults)")
+    ap.add_argument("--path", default="street", help="--sim trajectory shape")
+    ap.add_argument("--speed", type=float, default=0.5)
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--images", action="store_true",
+                    help="run the image front-end (dataset: cam.csv images; "
+                         "sim: rendered stereo) instead of ideal features")
+    ap.add_argument("--tracker", default="device", choices=["cv", "device"],
+                    help="device: DeviceTracker on --device; cv: OpenCV's "
+                         "FeatureTracker on the host")
+    ap.add_argument("--focal", type=float, default=460.0,
+                    help="dataset image focal length (px)")
+    ap.add_argument("--csv", help="write the 20-column result CSV")
+    ap.add_argument("--metrics", help="write a JSONL metrics stream")
+    ap.add_argument("--max-frames", type=int, default=None)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the estimator and tracker run (f64); no "
+                         "fallback when the card is missing")
+    args = ap.parse_args(argv)
+
+    cfg = load_yaml(args.config) if args.config else EstimatorConfig()
+    est = Estimator(cfg, device=args.device)
+    if args.metrics:
+        from cerberus_tpu_torch.utils.metrics import MetricsLogger
+        est.metrics = MetricsLogger(args.metrics)
+
+    renderer = None
+    if args.dataset:
+        from cerberus_tpu_torch.data.log_adapter import (ImageLoader,
+                                                         load_dataset)
+        data = load_dataset(args.dataset)
+        if args.images:
+            renderer = ImageLoader(data, args.focal, cfg.image_width / 2.0,
+                                   cfg.image_height / 2.0)
+    else:
+        from cerberus_tpu_torch.data.simulator import (ImageRenderer,
+                                                       SimConfig, simulate)
+        data = simulate(SimConfig(duration=args.sim, speed=args.speed,
+                                  path=args.path, seed=args.seed))
+        if args.images:
+            renderer = ImageRenderer(data, cfg)
+
+    if not args.images and "features" not in data:
+        raise SystemExit(
+            "dataset has no features.npz — pass --images to run the "
+            "KLT front-end on cam.csv imagery (vision is required: the "
+            "reference asserts stereo+IMU, parameters.cpp:273)")
+    try:
+        if args.images:
+            from cerberus_tpu_torch.frontend.tracker import PinholeCamera
+            cam = PinholeCamera(renderer.f, renderer.f, renderer.cx,
+                                renderer.cy, size=(renderer.W, renderer.H))
+            if args.tracker == "device":
+                from cerberus_tpu_torch.frontend.device_tracker import \
+                    DeviceTracker
+                tracker = DeviceTracker(cam, cam, max_cnt=cfg.max_cnt,
+                                        min_dist=cfg.min_dist,
+                                        flow_back=cfg.flow_back,
+                                        device=est.device)
+            else:
+                from cerberus_tpu_torch.frontend.tracker import FeatureTracker
+                tracker = FeatureTracker(cam, cam, max_cnt=cfg.max_cnt,
+                                         min_dist=cfg.min_dist,
+                                         flow_back=cfg.flow_back)
+            out = replay_images(data, est=est, renderer=renderer,
+                                tracker=tracker, csv_path=args.csv,
+                                max_frames=args.max_frames)
+        else:
+            out = replay(data, est=est, csv_path=args.csv,
+                         max_frames=args.max_frames)
+    finally:
+        if est.metrics is not None:
+            est.metrics.close()
+    print(json.dumps({k: round(float(v), 5) if isinstance(v, (int, float))
+                      else v for k, v in out.items()
+                      if k in ("drift_pct", "ate_rmse", "distance",
+                               "final_err")}
+                     | {"solves": est.stats["solves"],
+                        "reboots": est.stats["reboots"],
+                        "device": est.device.type}))
+    return out
+
+
+if __name__ == "__main__":
+    _main()

@@ -23,10 +23,12 @@ estimator.cpp:400-846):
      entry, and the host's outlier removal and window slide.
 
 The port runs eagerly: the JAX package's jitted, cached closures are plain
-functions here. Sensor synchronisation is the Python `PySensorSync` (the JAX
-package's C++ `native.SensorSync` is not ported). Left out: the debug cost
-breakdown and the metrics logger hooks (diagnostics of the evals), and
-`_reject_outliers`, which nothing calls.
+functions here. Sensor synchronisation is the C++ `native.SensorSync` when
+its library builds (`use_native`, as in the JAX package), else the Python
+`PySensorSync`; both extract bit-identical intervals. A `MetricsLogger`
+set as `est.metrics` receives `solve` and `reboot` events; `est.debug =
+True` records the window's cost breakdown at each step's entry in
+`est.last_debug` (a read-back from the device, so only when asked for).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 from torch.profiler import record_function
 
 from cerberus_tpu_torch import config as C
+from cerberus_tpu_torch import native
 from cerberus_tpu_torch.config import EstimatorConfig
 from cerberus_tpu_torch.device import full_f32_matmuls, resolve_device
 from cerberus_tpu_torch.estimator.feature_manager import FeatureManager
@@ -262,12 +265,15 @@ class Estimator:
 
     def __init__(self, cfg: EstimatorConfig | None = None,
                  max_samples: int = 128, dtype=torch.float64,
-                 device="cuda", pipeline: bool = True):
+                 device="cuda", use_native: bool | None = None,
+                 pipeline: bool = True):
         # max_samples: padded per-interval sample capacity. At 500 Hz / 15 Hz
         # an interval holds ~34 samples; MARGIN_SECOND_NEW merges consecutive
         # non-keyframe intervals, so 128 covers ~3 merges. Overflow truncates
         # the oldest samples (reference keeps unbounded std::vectors,
         # estimator.h:141-149).
+        # use_native: the C++ SensorSync (native.py); None = when its library
+        # builds, True = always (a failed build raises), False = PySensorSync
         self.cfg = cfg or EstimatorConfig()
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -276,6 +282,11 @@ class Estimator:
         self.params = PreintParams.from_config(self.cfg, dtype,
                                                device=self.device)
         self.F = self.cfg.max_features
+        if use_native is None:
+            use_native = native.available()
+        self.use_native = bool(use_native)
+        self.metrics = None   # a MetricsLogger: `solve` / `reboot` events
+        self.debug = False    # record last_debug (reads back from the device)
         self.fm = FeatureManager(self.F, self.cfg.min_parallax)
         self.clear_state()
 
@@ -319,7 +330,7 @@ class Estimator:
         self._pending = None       # dispatched, not yet adopted step
         self._pending_frames = []  # frames waiting for proprio to reach t+td
         self._last_raw = None      # (acc, gyr) of the newest pushed sample
-        self.sync = PySensorSync()
+        self.sync = native.SensorSync() if self.use_native else PySensorSync()
         self.fm = FeatureManager(self.F, self.cfg.min_parallax)
 
         # IMU-rate fast prediction state (reference: fastPredictIMU)
@@ -554,6 +565,15 @@ class Estimator:
         free_mask = self._dev(self._free_mask())
         self.stats["pack_time"] = self.stats.get("pack_time", 0.0) \
             + (time.time() - t0)
+        if self.debug:
+            data_dbg, *_ = self._pack()
+            self.last_debug = {"entry": _cost_breakdown(st0, data_dbg,
+                                                        self.F)}
+            if self.prior is not None:
+                dx = fac.local_diff(st0, self.prior[2]).cpu().numpy()
+                j = int(np.argmax(np.abs(dx)))
+                print(f"[prior-dx] |dx|={np.linalg.norm(dx):.2e} "
+                      f"argmax dim {j} = {dx[j]:.2e}")
         t1 = time.time()
         out = _streaming_step(
             st0, pres, self._dev(ivalid), feats_pad, prior_t, free_mask,
@@ -581,6 +601,7 @@ class Estimator:
         self._pending = None
         out, slots, feats_d = pend["out"], pend["slots"], pend["feats_d"]
         margin_flag, t0, t1 = pend["margin_flag"], pend["t0"], pend["t1"]
+        t, is_kf = pend["t"], pend["is_kf"]
         tf = time.time()
         st_np, info, errs = _fetch(out["st"], out["info"], out["errs"])
         self.stats["solve_only_time"] = \
@@ -591,6 +612,15 @@ class Estimator:
         self.last_info = info
         self.stats["solve_time"] += time.time() - t0
         self.stats["solves"] += 1
+        if self.metrics is not None:
+            self.metrics.log(
+                "solve", t=float(t), cost0=float(info.cost0),
+                cost=float(info.cost), accepted=int(info.accepted),
+                solve_ms=round(1000 * (time.time() - t0), 2),
+                block_ms=round(1000 * (time.time() - tf), 2),
+                dispatches=self.stats.get("dispatches", 0),
+                features=int(np.sum(feats_d["valid"])),
+                keyframe=bool(is_kf), td=float(self.td))
 
         # host-side outlier bookkeeping — the SAME 3 px average-error rule
         # the step applied on the device before marginalizing
@@ -607,6 +637,9 @@ class Estimator:
             # system reboot (reference: estimator.cpp:823-831), with pose
             # continuity (see _rebase_world)
             self.stats["reboots"] += 1
+            if self.metrics is not None:
+                self.metrics.log("reboot", t=float(t),
+                                 count=self.stats["reboots"])
             self._rebase_world()
             self.clear_state()
             return
@@ -904,6 +937,8 @@ class Estimator:
         def fail(reason):
             self.stats.setdefault("failure_reasons", []).append(
                 (float(self.headers[i]), reason))
+            if self.debug:
+                print(f"[failure_detection] {reason}")
             return True
 
         if self.cfg.use_imu and np.linalg.norm(self.ba[i]) > 2.5:
@@ -924,6 +959,17 @@ class Estimator:
         self._last_pose = (self.p[i].copy(), self.q[i].copy())
         return False
 
+    def _reject_outliers(self):
+        """reference: outliersRejection + removeOutlier
+        (estimator.cpp:805-817): the 3 px average reprojection rule at the
+        current window state, on the host's feature bookkeeping."""
+        data, feats, slots, depths = self._pack()
+        st = self._window_state(depths)
+        errs = fac.feature_reproj_errors(st, data).cpu().numpy()[: len(slots)]
+        bad = [s for n, s in enumerate(slots)
+               if feats["valid"][n] and errs[n] * C.FOCAL_LENGTH > 3.0]
+        self.fm.remove_outliers(bad)
+
     # ------------------------------------------------------------------
     def _post_solve(self, margin_flag):
         """Marginalize + slide, eager path (reference: estimator.cpp:
@@ -939,6 +985,13 @@ class Estimator:
                 else:
                     pj, pr, valid = marg.marginalize_second_new(st, data)
                     lin = _shift_state_second_new(st)
+            if self.debug:
+                born = float(0.5 * torch.sum(pr ** 2))
+                if margin_flag == MARGIN_OLD and hasattr(self, "last_debug"):
+                    self.last_debug["born_prior"] = born
+                kind = "old" if margin_flag == MARGIN_OLD else "new"
+                print(f"[marg_{kind}] born prior cost {born:.1f} "
+                      f"valid={bool(valid)}")
             if not self.cfg.marg_td_info:
                 pj[:, fac.TD_OFF] = 0.0
             # an invalid prior ("unstable tracking",
@@ -1077,6 +1130,20 @@ class Estimator:
         v = self.v[min(self.frame_count, NF - 1)].copy()
         off = getattr(self, "_world_offset", None)
         return v if off is None else off[1] @ v
+
+
+def _cost_breakdown(st: fac.WindowState, data: fac.WindowData, F: int):
+    """Debug helper: (ileg, proj, prior) half-sum-of-squares at `st` (the
+    prior's part includes the 13 calibration-prior rows), read back to the
+    host."""
+    zero = torch.zeros((fac.tangent_dim(F),), dtype=st.p.dtype,
+                       device=st.p.device)
+    with full_f32_matmuls():
+        r = fac.window_residuals(st, zero, data).cpu().numpy()
+    s = 310 + F * 44
+    return (float(0.5 * (r[:310] ** 2).sum()),
+            float(0.5 * (r[310:s] ** 2).sum()),
+            float(0.5 * (r[s:] ** 2).sum()))
 
 
 def _merge_buffers(b8: IntervalBuffer, b9: IntervalBuffer) -> IntervalBuffer:

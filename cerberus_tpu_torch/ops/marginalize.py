@@ -11,8 +11,9 @@ window slide with a column permutation. The index sets and permutation
 matrices are made once per device (`_constants`), so a marginalization on
 the card copies nothing from the host and reads nothing back.
 
-The eigendecomposition variants (`_schur_drop`, `_prior_from_Hb`), which
-no path of the JAX package calls, are not ported.
+The eigendecomposition variants `_prior_from_Hb` and `_schur_drop` (the
+reference's eigen square root and Schur drop, marginalization_factor.cpp:
+281-305), which no path of the JAX package calls, are ported as they are.
 """
 
 from __future__ import annotations
@@ -26,6 +27,58 @@ from cerberus_tpu_torch.ops.structured import linearize_rows
 from cerberus_tpu_torch.utils import lie
 
 NF = C.NUM_FRAMES
+_EIG_EPS = 1e-8  # reference: marginalization_factor.cpp:281-305
+
+
+def _prior_from_Hb(H, b, dtype):
+    """(J, r) with J^T J = H, J^T r = b via eigen square root.
+
+    The eigendecomposition runs on the Jacobi-equilibrated matrix
+    D^-1/2 H D^-1/2: the window Hessian mixes scales across ~12 orders of
+    magnitude, so eigh's relative roundoff (~1e-16 * lam_max) would
+    otherwise produce spurious eigenvalues far above the reference's
+    absolute 1e-8 cutoff, and the S^-1/2 in `r` would amplify gradient noise
+    along them. After equilibration lam_max ~ n and the cutoff is safely
+    above the noise floor."""
+    dg = torch.diagonal(H)
+    d = torch.sqrt(torch.clamp(dg, min=1e-12))
+    Hs = H / (d[:, None] * d[None, :])
+    Hs = 0.5 * (Hs + Hs.T)
+    lam, V = torch.linalg.eigh(Hs)
+    good = lam > _EIG_EPS
+    s = torch.where(good, torch.sqrt(torch.clamp(lam, min=_EIG_EPS)), 0.0)
+    s_inv = torch.where(good, 1.0 / torch.clamp(s, min=_EIG_EPS), 0.0)
+    J = (s[:, None] * V.T) * d[None, :]
+    r = s_inv[:, None] * V.T @ (b / d)
+    return J.to(dtype), r.to(dtype)
+
+
+def _schur_drop(H, b, drop_mask):
+    """Schur-complement out the dims where drop_mask is True.
+
+    Returns (H_keep, b_keep) with dropped rows/cols zeroed. Uses an eigh
+    pseudo-inverse of the dropped block (reference semantics, eps 1e-8),
+    equilibrated for the same scale-spread reason as _prior_from_Hb."""
+    m = drop_mask.to(H.dtype)
+    keep = 1.0 - m
+    # A = [H_dd, 0; 0, I] in a mask-partitioned sense
+    A = H * m[:, None] * m[None, :] + torch.diag_embed(keep)
+    dg = torch.diagonal(A)
+    d = torch.sqrt(torch.clamp(dg, min=1e-12))
+    As = A / (d[:, None] * d[None, :])
+    As = 0.5 * (As + As.T)
+    lam, V = torch.linalg.eigh(As)
+    lam_inv = torch.where(lam > _EIG_EPS,
+                          1.0 / torch.clamp(lam, min=_EIG_EPS), 0.0)
+    A_inv = (V * lam_inv[None, :]) @ V.T
+    A_inv = A_inv / (d[:, None] * d[None, :])
+    A_inv = A_inv * m[:, None] * m[None, :]      # restrict to dropped block
+    Hd = H * m[None, :]                          # columns into dropped dims
+    H_new = H - Hd @ A_inv @ Hd.T
+    b_new = b - Hd @ (A_inv @ b)
+    H_new = H_new * keep[:, None] * keep[None, :]
+    b_new = b_new * keep
+    return H_new, b_new
 
 
 def frame_indices(i: int, *, device) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""On-manifold preintegration of IMU+leg measurement streams (port of the
-sequential part of `cerberus_tpu/ops/preintegration.py`).
+"""On-manifold preintegration of IMU and IMU+leg measurement streams (port
+of `cerberus_tpu/ops/preintegration.py`).
 
 One keyframe interval's samples are packed into fixed-size padded tensors
 and integrated by a Python loop over the samples with a masked accept, the
@@ -8,12 +8,14 @@ same error-state transition F (31x31) and noise map V (31x46) as the
 reference (src/factor/imu_leg_integration_base.cpp:138-469).
 
 State conventions:
+  IMU delta state (15): [p, theta, v, ba, bg]
   IMU+leg error state (31): [p, theta, v, eps1..4, ba, bg, rho1..4]
   IMU+leg noise (46): [a_i, g_i, a_i1, g_i1, ba_w, bg_w, phi_i, phi_i1,
                        dphi_i, dphi_i1, v_leg1..4, n_rho1..4]
 
-The pure-IMU 15-state path (`imu_preintegrate`, `imu_residual`) is not
-ported yet.
+The pure-IMU 15-state path (`imu_preintegrate`, `imu_residual`;
+reference: integration_base.h:65-198) and the IMU+leg residual
+(`il_residual`) are the same formulas on torch tensors.
 """
 
 from __future__ import annotations
@@ -80,6 +82,19 @@ class PreintParams(NamedTuple):
         )
 
 
+class ImuPreint(NamedTuple):
+    """Result of pure-IMU preintegration over one interval."""
+
+    dp: torch.Tensor          # (3,)
+    dq: torch.Tensor          # (4,) wxyz
+    dv: torch.Tensor          # (3,)
+    J: torch.Tensor           # (15, 15) d(delta)/d(state at linearization)
+    P: torch.Tensor           # (15, 15) covariance
+    sum_dt: torch.Tensor      # ()
+    ba: torch.Tensor          # (3,) linearization accel bias
+    bg: torch.Tensor          # (3,) linearization gyro bias
+
+
 class ILPreint(NamedTuple):
     """Result of IMU+leg preintegration over one interval."""
 
@@ -103,6 +118,134 @@ class ILPreint(NamedTuple):
     ff_window: torch.Tensor     # (4, FOOT_VAR_WINDOW_SIZE)
     ff_idx: torch.Tensor        # (4,) int32
 
+
+# ---------------------------------------------------------------------------
+# Pure IMU (15-state) — reference: integration_base.h:65-140
+# ---------------------------------------------------------------------------
+
+
+def _imu_step(carry, inp, ba, bg, params: PreintParams):
+    """One midpoint step of the 15-state preintegration; a masked accept
+    (`valid`) keeps the carry on padding samples."""
+    dp, dq, dv, J, P, sum_dt, acc_0, gyr_0 = carry
+    dt, acc_1, gyr_1, valid = inp
+    dtype, dev = dp.dtype, dp.device
+
+    un_acc_0 = lie.quat_rotate(dq, acc_0 - ba)
+    un_gyr = 0.5 * (gyr_0 + gyr_1) - bg
+    dq_new = lie.quat_normalize(lie.quat_mul(dq, lie.delta_q(un_gyr * dt)))
+    un_acc_1 = lie.quat_rotate(dq_new, acc_1 - ba)
+    un_acc = 0.5 * (un_acc_0 + un_acc_1)
+    dp_new = dp + dv * dt + 0.5 * un_acc * dt * dt
+    dv_new = dv + un_acc * dt
+
+    R0 = lie.quat_to_rot(dq)
+    R1 = lie.quat_to_rot(dq_new)
+    Rw = lie.skew(un_gyr)
+    Ra0 = lie.skew(acc_0 - ba)
+    Ra1 = lie.skew(acc_1 - ba)
+    I3 = torch.eye(3, dtype=dtype, device=dev)
+    k7 = I3 - Rw * dt
+
+    F = torch.zeros((15, 15), dtype=dtype, device=dev)
+    k1 = -0.5 * R0 @ Ra0 * dt - 0.5 * R1 @ Ra1 @ k7 * dt
+    F[0:3, 0:3] = I3
+    F[0:3, 3:6] = 0.5 * dt * k1
+    F[0:3, 6:9] = I3 * dt
+    F[0:3, 9:12] = -0.25 * (R0 + R1) * dt * dt
+    F[0:3, 12:15] = 0.25 * R1 @ Ra1 * dt * dt * dt
+    F[3:6, 3:6] = k7
+    F[3:6, 12:15] = -I3 * dt
+    F[6:9, 3:6] = k1
+    F[6:9, 6:9] = I3
+    F[6:9, 9:12] = -0.5 * (R0 + R1) * dt
+    F[6:9, 12:15] = 0.5 * R1 @ Ra1 * dt * dt
+    F[9:12, 9:12] = I3
+    F[12:15, 12:15] = I3
+
+    V = torch.zeros((15, 18), dtype=dtype, device=dev)
+    Vg = -0.25 * R1 @ Ra1 * dt * dt * 0.5 * dt
+    V[0:3, 0:3] = 0.25 * R0 * dt * dt
+    V[0:3, 3:6] = Vg
+    V[0:3, 6:9] = 0.25 * R1 * dt * dt
+    V[0:3, 9:12] = Vg
+    V[3:6, 3:6] = 0.5 * I3 * dt
+    V[3:6, 9:12] = 0.5 * I3 * dt
+    V[6:9, 0:3] = 0.5 * R0 * dt
+    Vg2 = -0.5 * R1 @ Ra1 * dt * 0.5 * dt
+    V[6:9, 3:6] = Vg2
+    V[6:9, 6:9] = 0.5 * R1 * dt
+    V[6:9, 9:12] = Vg2
+    V[9:12, 12:15] = I3 * dt
+    V[12:15, 15:18] = I3 * dt
+
+    an2, anz2, gn2 = params.acc_n ** 2, params.acc_n_z ** 2, params.gyr_n ** 2
+    aw2, gw2 = params.acc_w ** 2, params.gyr_w ** 2
+    noise = torch.cat([torch.stack([an2, an2, anz2, gn2, gn2, gn2,
+                                    an2, an2, anz2, gn2, gn2, gn2]),
+                       aw2.expand(3), gw2.expand(3)]).to(dtype)
+
+    J_new = F @ J
+    P_new = F @ P @ F.T + (V * noise[None, :]) @ V.T
+
+    new = (dp_new, dq_new, dv_new, J_new, P_new, sum_dt + dt, acc_1, gyr_1)
+    return tuple(torch.where(valid, a, b) for a, b in zip(new, carry))
+
+
+def imu_preintegrate(dt, acc, gyr, mask, ba, bg,
+                     params: PreintParams) -> ImuPreint:
+    """Integrate one interval of IMU samples.
+
+    Args:
+      dt:  (S,) step durations; dt[k] spans sample k-1 -> k, with sample 0
+           given by acc[0]/gyr[0] and dt[0] unused (set mask[0]=False).
+      acc: (S, 3), gyr: (S, 3) raw samples (sample 0 = linearization sample).
+      mask: (S,) bool; False entries are padding (carry passes through).
+      ba, bg: (3,) linearization biases.
+    Runs on the inputs' device, one eager step per sample.
+    """
+    dtype, dev = acc.dtype, acc.device
+    carry = (torch.zeros(3, dtype=dtype, device=dev),
+             lie.quat_identity(dtype, device=dev),
+             torch.zeros(3, dtype=dtype, device=dev),
+             torch.eye(15, dtype=dtype, device=dev),
+             torch.zeros((15, 15), dtype=dtype, device=dev),
+             torch.zeros((), dtype=dtype, device=dev), acc[0], gyr[0])
+    for k in range(1, dt.shape[0]):
+        carry = _imu_step(carry, (dt[k], acc[k], gyr[k], mask[k]), ba, bg,
+                          params)
+    dp, dq, dv, J, P, sum_dt, _, _ = carry
+    return ImuPreint(dp, dq, dv, J, P, sum_dt, ba, bg)
+
+
+def imu_residual(pre: ImuPreint, state_i, state_j, gravity):
+    """15-dim bias-corrected residual (reference: integration_base.h:172-198).
+
+    state_{i,j}: dicts with p (3,), q (4,), v (3,), ba (3,), bg (3,).
+    """
+    dba = state_i["ba"] - pre.ba
+    dbg = state_i["bg"] - pre.bg
+    dp = pre.dp + pre.J[0:3, 9:12] @ dba + pre.J[0:3, 12:15] @ dbg
+    dq = lie.quat_mul(pre.dq, lie.delta_q(pre.J[3:6, 12:15] @ dbg))
+    dv = pre.dv + pre.J[6:9, 9:12] @ dba + pre.J[6:9, 12:15] @ dbg
+
+    qi_inv = lie.quat_conj(state_i["q"])
+    r_p = lie.quat_rotate(
+        qi_inv,
+        0.5 * gravity * pre.sum_dt ** 2 + state_j["p"] - state_i["p"]
+        - state_i["v"] * pre.sum_dt,
+    ) - dp
+    q_err = lie.quat_mul(lie.quat_conj(dq), lie.quat_mul(qi_inv, state_j["q"]))
+    r_q = 2.0 * q_err[1:]
+    r_v = lie.quat_rotate(
+        qi_inv, gravity * pre.sum_dt + state_j["v"] - state_i["v"]) - dv
+    return torch.cat([r_p, r_q, r_v, state_j["ba"] - state_i["ba"],
+                      state_j["bg"] - state_i["bg"]])
+
+
+# ---------------------------------------------------------------------------
+# IMU + leg (31-state) — reference: imu_leg_integration_base.cpp:138-469
+# ---------------------------------------------------------------------------
 
 _EPS = C.ILO_EPS
 _BA, _BG, _RHO = C.ILO_BA, C.ILO_BG, C.ILO_RHO
@@ -717,4 +860,45 @@ def il_preintegrate_parallel(dt, acc, gyr, phi, dphi, c, mask, ba, bg, rho,
         J=Fs[0], P=Qs[0], sum_dt=torch.sum(dtv), ba=ba, bg=bg, rho=rho,
         contact_flag=contact_final, integration_contact=int_contact,
         ff_min=ff_min, ff_max=ff_max, ff_window=ff_window, ff_idx=ff_idx,
+    )
+
+
+def il_residual(pre: ILPreint, state_i, state_j, gravity):
+    """31-dim bias-corrected residual (reference:
+    imu_leg_integration_base.cpp:845-898).
+
+    state_{i,j}: dicts with p, q(wxyz), v, ba, bg (3-vecs) and rho (4,).
+    """
+    dba = state_i["ba"] - pre.ba
+    dbg = state_i["bg"] - pre.bg
+    drho = state_i["rho"] - pre.rho
+
+    J = pre.J
+    dp = pre.dp + J[0:3, _BA:_BA + 3] @ dba + J[0:3, _BG:_BG + 3] @ dbg
+    dq = lie.quat_mul(pre.dq, lie.delta_q(J[3:6, _BG:_BG + 3] @ dbg))
+    dv = pre.dv + J[6:9, _BA:_BA + 3] @ dba + J[6:9, _BG:_BG + 3] @ dbg
+
+    qi_inv = lie.quat_conj(state_i["q"])
+    r_p = lie.quat_rotate(
+        qi_inv,
+        0.5 * gravity * pre.sum_dt ** 2 + state_j["p"] - state_i["p"]
+        - state_i["v"] * pre.sum_dt,
+    ) - dp
+    q_err = lie.quat_mul(lie.quat_conj(dq), lie.quat_mul(qi_inv, state_j["q"]))
+    r_q = 2.0 * q_err[1:]
+    r_v = lie.quat_rotate(
+        qi_inv, gravity * pre.sum_dt + state_j["v"] - state_i["v"]) - dv
+
+    rel_p = lie.quat_rotate(qi_inv, state_j["p"] - state_i["p"])
+    r_eps = []
+    for j in range(C.NUM_OF_LEG):
+        r = _EPS + 3 * j
+        deps_j = (pre.deps[j] + J[r:r + 3, _BG:_BG + 3] @ dbg
+                  + J[r:r + 3, _RHO + j:_RHO + j + 1] @ drho[j:j + 1])
+        r_eps.append(rel_p - deps_j)
+    r_rho = state_j["rho"] - state_i["rho"]
+
+    return torch.cat(
+        [r_p, r_q, r_v] + r_eps
+        + [state_j["ba"] - state_i["ba"], state_j["bg"] - state_i["bg"], r_rho]
     )

@@ -12,8 +12,8 @@ contraction, so the whole assembly is free of in-place writes and runs under
 `torch.func.vmap` over a batch of windows.
 
 `linearize_rows` assembles the weighted Jacobian itself, row by row, from
-the same per-factor Jacobians, for the marginalization. The full-matrix
-`build_normal_equations` is not ported.
+the same per-factor Jacobians, for the marginalization;
+`build_normal_equations` is the blocks' full-matrix view.
 """
 
 from __future__ import annotations
@@ -317,6 +317,18 @@ def build_normal_equations_blocks(st: fac.WindowState, data: fac.WindowData):
     # residual vector for cost bookkeeping (same ordering as factors stack)
     r0 = torch.cat([r_il.reshape(-1), r_p.reshape(-1), r_prior, r_calib])
     return H_pp, H_pd, h_dd, b_p, b_d, r0
+
+
+def build_normal_equations(st: fac.WindowState, data: fac.WindowData):
+    """Assemble (H, b, r0) of the robustified Gauss-Newton system without
+    materializing the stacked Jacobian: the full-matrix view of
+    `build_normal_equations_blocks` (the solver's Schur path consumes the
+    blocks directly). Same Huber IRLS weights and free-mask zeroing as
+    factors.linearize."""
+    H_pp, H_pd, h_dd, b_p, b_d, r0 = build_normal_equations_blocks(st, data)
+    H = torch.cat([torch.cat([H_pp, H_pd], dim=1),
+                   torch.cat([H_pd.T, torch.diag_embed(h_dd)], dim=1)])
+    return H, torch.cat([b_p, b_d]), r0
 
 
 def linearize_rows(st: fac.WindowState, data: fac.WindowData):

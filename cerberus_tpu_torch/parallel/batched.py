@@ -9,7 +9,10 @@
 2. `pooled_calibration_step` — a cross-window reduction: every window
    contributes normal equations for a shared calibration block (the four
    per-leg calf lengths); each device sums its chunk's, the first device
-   sums the devices' (the JAX package's `psum`) and solves once.
+   sums the devices' (the JAX package's `psum`) and solves once. With a
+   `torch.distributed` group (`mesh.init_distributed`), every process
+   pools its own windows and the processes' sums are all-reduced before
+   the solve, which each process then makes alike.
    Each window's contribution needs only J_s, the sum of its eleven
    per-frame rho column blocks: four forward-mode products along those
    summed directions (`ops.factors.linearize_directions`), not the dense J.
@@ -62,7 +65,8 @@ def _local_normal_equations(states, datas):
     return H.sum(0), b.sum(0)
 
 
-def pooled_calibration_step(states, datas, mesh=None, damping: float = 1e-6):
+def pooled_calibration_step(states, datas, mesh=None, damping: float = 1e-6,
+                            group=None):
     """One Gauss-Newton step on a shared per-leg kinematic calibration (rho,
     4 dims) pooled across a batch of windows.
 
@@ -70,7 +74,10 @@ def pooled_calibration_step(states, datas, mesh=None, damping: float = 1e-6):
     constrain the same physical calf lengths, so the shared normal
     equations are the sum of the per-window contributions (the same delta
     applies to every frame's rho). With a mesh, each device sums its chunk
-    and the first device sums the devices'.
+    and the first device sums the devices'. With a process group (`group`,
+    from `mesh.init_distributed`), H and b are then summed over the
+    group's processes (an all-reduce; nccl wants them on the card, gloo on
+    the CPU), so the step pools every process's windows.
 
     Returns (new_states with rho shifted by the shared step, dx_rho (4,),
     H (4,4), b (4,)), on the first device of the mesh (or where the inputs
@@ -84,6 +91,10 @@ def pooled_calibration_step(states, datas, mesh=None, damping: float = 1e-6):
         H = sum(h.to(mesh[0]) for h, _ in parts)
         b = sum(v.to(mesh[0]) for _, v in parts)
         states = fac.map_tensors(lambda x: x.to(mesh[0]), states)
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(H, group=group)
+        dist.all_reduce(b, group=group)
     eye = torch.eye(4, dtype=H.dtype, device=H.device)
     dx = -torch.linalg.solve_ex(H + damping * eye, b).result
     return states._replace(rho=states.rho + dx[None, None, :]), dx, H, b

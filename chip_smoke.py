@@ -9,8 +9,9 @@ Phases, each printed with its elapsed seconds:
      if it is, PinholeCamera's undistortion against OpenCV's; fails without
      a CUDA device (there is no CPU fallback);
   2. build: the kernel sources cerberus_tpu_torch/csrc/*.cu, one nvcc each,
-     all started together, into build/cerberus_tpu_torch/, with each
-     kernel's registers, shared memory and spills as ptxas reports them;
+     and the native sensor sync native/sensor_sync.cpp with g++, all
+     started together, into build/cerberus_tpu_torch/, with each kernel's
+     registers, shared memory and spills as ptxas reports them;
   3. kernels: each kernel against its plain torch version on the card at
      tile-aligned and ragged n, resident and streamed tiles, and a batch
      with one system that is not SPD (its x NaN, the others as alone); then
@@ -30,7 +31,10 @@ Phases, each printed with its elapsed seconds:
      f64, stereo, leg odometry, online rho, extrinsic estimation) replaying
      two simulated sequences, 20 camera frames each, with the end-to-end
      tests' gates, the f64 kernel's launches counted per solve, and the
-     first 14 frames cross-checked against the port on the CPU;
+     first 14 frames cross-checked against the port on the CPU; those 14
+     frames' estimator then checkpointed (save_estimator), loaded into a
+     fresh estimator on the card (load_estimator), and frames 15-20 run on
+     both: positions equal within 1e-12 m;
   6. tracker check: the device tracker's frame programs (_first_frame,
      track_frame) on the card against the same functions on the CPU, on 3
      rendered 640x480 stereo pairs of sequence A with equal inputs;
@@ -44,6 +48,20 @@ Phases, each printed with its elapsed seconds:
      legged EKF on the card (contact source 0) — with the gates, the f64
      kernel's launches counted, tracker, render and EKF times, and tracks
      alive per frame;
+  8b. native sync check: sequence A's 1,500 samples through the native
+     SensorSync (g++) and PySensorSync, every camera interval extracted
+     from both: equal, exact;
+  8c. bag -> dataset: sequence A written as an A1 rosbag (BagWriter: 500 Hz
+     IMU and joint states, 100 Hz mocap, 640x480 stereo at every camera
+     frame) and converted (convert_rosbag) to a schema-v1 dataset under
+     build/chip_smoke/; the bag's size, messages per topic, seconds;
+  8d. bag replay CLI: `python -m cerberus_tpu_torch.data.replay --dataset
+     DIR --images --csv ... --metrics ... --max-frames 20` in-process
+     (load_dataset + ImageLoader -> DeviceTracker -> the default f64
+     estimator on the card with the native sync), with the gates
+     (NON_LINEAR, 0 reboots, ate_rmse <= 2x the JAX CLI's on the same
+     dataset), the f64 kernel's launches counted, the CSV and the metrics
+     stream read back, frames per second and ms per frame;
   9. keyframes -> pose graph: streaming A's keyframes (keyframe_callback)
      fed a pose graph on the card, the gates of
      tests/test_posegraph.py::test_estimator_feeds_posegraph;
@@ -55,7 +73,9 @@ Phases, each printed with its elapsed seconds:
  11. fleet: build_fleet(4 segments x 32 perturbations) = 128 windows at
      F = 96, f32, through solve_fleet (the f32 kernel's launches counted),
      tests/test_fleet.py's gates, 8 windows against the CPU, windows per
-     second; the pooled calibration step against the CPU;
+     second; the pooled calibration step against the CPU; then the same
+     step under a one-process nccl group (init_distributed, group=)
+     against the step without one: equal;
  12. sfm check: the initial SfM and alignment functions card vs CPU at the
      estimator's window (11 frames, F = 160, 128 hypotheses) and
      tests/test_initial_sfm.py's gates on the card;
@@ -75,18 +95,28 @@ sys.dont_write_bytecode = True
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import socket  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
 import re  # noqa: E402
+from collections import Counter  # noqa: E402
 from concurrent.futures import ThreadPoolExecutor  # noqa: E402
+from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from cerberus_tpu_torch import _build  # noqa: E402
+from cerberus_tpu_torch import native  # noqa: E402
 from cerberus_tpu_torch.config import EstimatorConfig  # noqa: E402
 from cerberus_tpu_torch import convert  # noqa: E402
+from cerberus_tpu_torch.data import replay as replay_mod  # noqa: E402
+from cerberus_tpu_torch.data.log_adapter import (A1_TOPICS,  # noqa: E402
+                                                 convert_rosbag)
 from cerberus_tpu_torch.data.replay import replay, replay_images  # noqa: E402
+from cerberus_tpu_torch.data.rosbag import (BagWriter, ImageMsg,  # noqa: E402
+                                            ImuMsg, JointStateMsg,
+                                            PoseStampedMsg)
 from cerberus_tpu_torch.data.simulator import (ImageRenderer,  # noqa: E402
                                                PrerenderedFrames, SimConfig,
                                                simulate)
@@ -110,7 +140,11 @@ from cerberus_tpu_torch.loop.posegraph import (PoseGraph,  # noqa: E402
                                                optimize_pose_graph)
 from cerberus_tpu_torch.parallel import pooled_calibration_step  # noqa: E402
 from cerberus_tpu_torch.parallel.fleet import build_fleet, solve_fleet  # noqa: E402
+from cerberus_tpu_torch.parallel.mesh import init_distributed  # noqa: E402
 from cerberus_tpu_torch.utils import lie  # noqa: E402
+from cerberus_tpu_torch.utils.checkpoint import (load_estimator,  # noqa: E402
+                                                 save_estimator)
+from cerberus_tpu_torch.utils.metrics import read_metrics  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth,
 # float32 and float64 outside the tensor cores
@@ -135,6 +169,8 @@ TRACK_POS_TOL = 1e-2  # px, tracker card vs CPU, points kept by both
 TRACK_AGREE = 0.98   # share of slots whose flags must agree, card vs CPU
 EKF_TOL = 1e-9       # EKF card vs CPU, relative, f64
 ATE_GATE = 0.0041    # m: 2x the JAX package's 0.00204 on the image replay
+BAG_ATE_GATE = 0.0040  # m: 2x the JAX CLI's 0.00200 on the same dataset
+#                        (tools/jax_bag_replay.py, JAX on the CPU, f64)
 
 # the loop back-end's street stream (StreetStream): the circuit of
 # evals/long_run.py --loop, keyframes 0.27 m apart along it (over the loop
@@ -150,6 +186,15 @@ KF_PIX_NOISE = 0.5      # px (focal 460) on the keyframes' observations
 
 CPU_REPLAY_S = 150   # s: budget of the loop stream's replay on the CPU
 PG_TOL = 1e-9        # optimize_pose_graph card vs CPU, relative, f64
+# the logged-data path: sequence A recorded as an A1 bag (A1_TOPICS), stamps
+# at sim time + BAG_EPOCH (a nonzero epoch like a real bag's, as
+# tests/test_rosbag.py::_sim_to_bag writes them), mocap at 500 / MOCAP_STRIDE
+# Hz, converted to a schema-v1 dataset and replayed by the CLI
+BAG_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+BAG_EPOCH = 1000.0
+MOCAP_STRIDE = 5
+SYNC_CUT_OFFSET = 7e-4   # s: interval ends off the sample clock (lerped)
+CKPT_TOL = 1e-12     # m: a resumed checkpoint vs the estimator it saved
 FLEET_SEGMENTS, FLEET_PERTURB = 4, 32   # B = 128 windows, F = 96, f32
 SFM_TOL = 1e-9       # initial SfM card vs CPU, relative, f64
 
@@ -433,10 +478,13 @@ def environment():
 
 
 def build():
+    """The kernels with nvcc and the native sensor sync with g++, one
+    compiler each, all started together; a failed build raises."""
     t0 = time.perf_counter()
     names = ("lane_cholesky", "cholesky_solve")
-    with ThreadPoolExecutor(len(names)) as pool:
-        libs = list(pool.map(_build.build, names))
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        native_lib = pool.submit(_build.build_native)
+        libs = list(pool.map(_build.build, names)) + [native_lib.result()]
     phase("build", t0, libraries=",".join(lib.name for lib in libs))
     # ptxas -v: registers, static shared memory and spills of each kernel
     # (its dynamic shared memory is the tile plan's, printed per shape)
@@ -844,7 +892,9 @@ def streaming_path(dev):
     phase("cross-check streaming vs CPU", t0, frames=CHECK_FRAMES,
           published=len(cpu["est_t"]), solves=sc["solves"],
           max_abs_dp=float(np.abs(card["est_p"] - cpu["est_p"]).max()))
-    launches = {"streaming A": counts_a, "streaming B": counts_b}
+    counts_ck = checkpoint_round_trip(card["estimator"], simulate(seq_a), dev)
+    launches = {"streaming A": counts_a, "streaming B": counts_b,
+                "checkpoint round trip": counts_ck}
     return launches, numbers
 
 
@@ -1035,6 +1085,192 @@ def image_replay(dev, sim):
     if not all(gates.values()):
         raise AssertionError(f"image replay A gates: {gates}")
     return counts, nums
+
+
+def native_sync_check(sim):
+    """Sequence A's samples pushed into the native SensorSync and into
+    PySensorSync at once; each camera frame's interval, cut
+    SYNC_CUT_OFFSET after the frame (off the sample clock, so both ends
+    interpolate), extracted from both when the stream reaches it, and once
+    just before it does (both None). Every extract must be equal, exact."""
+    t0 = time.perf_counter()
+    nat, py = native.SensorSync(), E.PySensorSync()
+    cuts = sorted(float(sim["t"][int(k)]) + SYNC_CUT_OFFSET
+                  for k in sim["cam_idx"])
+    prev, i, rows, none_checks = -1e18, 0, 0, 0
+    for k in range(len(sim["t"])):
+        if i < len(cuts) and sim["t"][k] >= cuts[i]:
+            # one sample short of the cut: neither has the interval yet
+            a, b = nat.extract(prev, cuts[i]), py.extract(prev, cuts[i])
+            if a is not None or b is not None:
+                raise AssertionError(f"native sync check: cut {i} extracted "
+                                     f"before the stream reached it")
+            none_checks += 1
+        row = (sim["t"][k], sim["acc"][k], sim["gyr"][k], sim["phi"][k],
+               sim["dphi"][k], sim["contacts"][k])
+        nat.push(*row)
+        py.push(*row)
+        while i < len(cuts) and sim["t"][k] >= cuts[i]:
+            a, b = nat.extract(prev, cuts[i]), py.extract(prev, cuts[i])
+            if a is None or b is None or not np.array_equal(a, b):
+                raise AssertionError(f"native sync check: cut {i} native "
+                                     f"{None if a is None else a.shape} vs "
+                                     f"Python {None if b is None else b.shape}")
+            rows += len(a)
+            prev, i = cuts[i], i + 1
+    if i != len(cuts):
+        raise AssertionError(f"native sync check: {i} of {len(cuts)} cuts")
+    phase("native sync check", t0, samples=len(sim["t"]), extracts=i,
+          rows=rows, not_yet_reached=none_checks, equal="exact")
+
+
+def write_sequence_bag(sim, path, renderer):
+    """Sequence `sim` as the A1 robot records it, on A1_TOPICS: 500 Hz IMU
+    and joint states (position[0:12], velocity[0:12] with the planned
+    contacts in velocity[12:16], foot forces in effort[12:16]; reference
+    main.cpp:262-278), mocap at 500 / MOCAP_STRIDE Hz (orientation xyzw),
+    and the renderer's stereo pair at every camera frame, stamped at sim
+    time + BAG_EPOCH. Returns the messages per topic."""
+    counts = Counter()
+    cams = set(int(k) for k in sim["cam_idx"])
+    with BagWriter(str(path)) as w:
+        def put(key, msg):
+            w.write(A1_TOPICS[key], msg)
+            counts[A1_TOPICS[key]] += 1
+
+        for k in range(len(sim["t"])):
+            t = float(sim["t"][k]) + BAG_EPOCH
+            put("imu", ImuMsg(stamp=t, acc=sim["acc"][k], gyr=sim["gyr"][k]))
+            put("leg", JointStateMsg(
+                stamp=t, position=np.concatenate([sim["phi"][k], np.zeros(4)]),
+                velocity=np.concatenate([sim["dphi"][k], sim["contacts"][k]]),
+                effort=np.concatenate([np.zeros(12), sim["foot_forces"][k]])))
+            if k % MOCAP_STRIDE == 0:
+                q = sim["q"][k]
+                put("mocap", PoseStampedMsg(stamp=t, p=sim["p"][k],
+                                            q=np.array([q[1], q[2], q[3],
+                                                        q[0]])))
+            if k in cams:
+                im0, im1 = renderer.render_stereo(k)
+                put("image0", ImageMsg(stamp=t, data=im0))
+                put("image1", ImageMsg(stamp=t, data=im1))
+    return dict(counts)
+
+
+def bag_to_dataset(sim, out_dir=BAG_DIR):
+    """Write sequence A's bag (640x480 stereo from ImageRenderer) and
+    convert it to a schema-v1 dataset, both under out_dir. Returns the
+    dataset's directory."""
+    t0 = time.perf_counter()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    bag, ds_dir = out_dir / "sequence_a.bag", out_dir / "sequence_a"
+    counts = write_sequence_bag(sim, bag, ImageRenderer(sim,
+                                                        EstimatorConfig()))
+    write_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ds = convert_rosbag(str(bag), str(ds_dir))
+    phase("bag -> dataset", t0, bag_bytes=bag.stat().st_size,
+          messages=counts, write_s=write_s,
+          convert_s=time.perf_counter() - t1, samples=len(ds["t"]),
+          images=len(ds["image_paths"]), mocap=len(ds["mocap_t"]))
+    return ds_dir
+
+
+def bag_replay_cli(ds_dir, dev):
+    """The dataset replayed by the command line on the card, in-process:
+    `python -m cerberus_tpu_torch.data.replay --dataset DIR --images --csv
+    ... --metrics ... --max-frames 20` (ImageLoader at the renderer's focal
+    length, DeviceTracker, the default f64 estimator on the card) with the
+    estimator's native sync required (use_native=True) and its frames
+    timed. Gates, launches, the CSV and the metrics read back. Returns
+    (launches, numbers)."""
+    csv, metrics = BAG_DIR / "replay.csv", BAG_DIR / "metrics.jsonl"
+    argv = ["--dataset", str(ds_dir), "--images", "--csv", str(csv),
+            "--metrics", str(metrics), "--max-frames", str(STREAM_FRAMES),
+            "--device", dev.type]
+    clocks = []
+
+    class CardEstimator(E.Estimator):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, use_native=True, **kw)
+            clocks.append(FrameClock(self, whole_device=False))
+
+    inner = replay_mod.Estimator
+    replay_mod.Estimator = CardEstimator
+    t0 = time.perf_counter()
+    reset_counts()
+    try:
+        out = replay_mod._main(argv)
+        torch.cuda.synchronize()
+    finally:
+        replay_mod.Estimator = inner
+    counts = read_counts()
+    wall = time.perf_counter() - t0
+    est = out["estimator"]
+    st = est.stats
+    rows = np.loadtxt(csv, delimiter=",", skiprows=1, ndmin=2)
+    recs = read_metrics(str(metrics))
+    solve_recs = [r for r in recs if r["kind"] == "solve"]
+    nums = dict(frames=STREAM_FRAMES, frames_per_s=STREAM_FRAMES / wall,
+                median_ms_per_nonlinear_frame=float(np.median(clocks[0].ms)),
+                track_ms_per_frame=out["track_ms_per_frame"],
+                image_read_ms_per_frame=out["render_ms_per_frame"],
+                ate_rmse=out["ate_rmse"], drift_pct=out["drift_pct"],
+                keyframes=st["keyframes"], solves=st["solves"],
+                init_solves=st["init_solves"], reboots=st["reboots"],
+                f64_launches=counts["lane_cholesky_solve[f64]"],
+                csv_rows=rows.shape[0], metrics_records=len(recs))
+    phase("bag replay CLI", t0, launches=counts, **nums)
+    check_launches("bag replay CLI", out, counts)
+    gates = {"solver_flag == NON_LINEAR": est.solver_flag == est.NON_LINEAR,
+             "reboots == 0": st["reboots"] == 0,
+             f"ate_rmse <= {BAG_ATE_GATE}": out["ate_rmse"] <= BAG_ATE_GATE,
+             "native sync": isinstance(est.sync, native.SensorSync),
+             "tracker frames": out["tracker"].stats["frames"]
+             == STREAM_FRAMES,
+             "CSV: 20 columns, a row per published frame":
+             rows.shape == (len(out["est_t"]), 20)
+             and bool(np.isfinite(rows).all()),
+             "metrics: a solve record per solve":
+             len(solve_recs) == st["solves"] > 0}
+    if not all(gates.values()):
+        raise AssertionError(f"bag replay CLI gates: {gates}")
+    return counts, nums
+
+
+def checkpoint_round_trip(est, sim, dev):
+    """save_estimator of `est` (streaming A's first CHECK_FRAMES frames on
+    the card), load_estimator into a fresh Estimator on the card, then the
+    next frames up to STREAM_FRAMES into both: every published pose and
+    the final window's positions within CKPT_TOL. Returns the launches."""
+    t0 = time.perf_counter()
+    BAG_DIR.mkdir(parents=True, exist_ok=True)
+    path = BAG_DIR / "streaming_a_checkpoint.npz"
+    save_estimator(est, str(path))
+    twin = load_estimator(E.Estimator(EstimatorConfig(), device=dev,
+                                      use_native=True), str(path))
+    feats = {int(k): f for k, f in zip(sim["cam_idx"], sim["features"])}
+    solves0 = est.stats["solves"]
+    worst = 0.0
+    reset_counts()
+    for k in sorted(feats)[CHECK_FRAMES:STREAM_FRAMES]:
+        for e in (est, twin):
+            e.input_image(sim["t"][k], feats[k])
+        worst = max(worst, float(np.abs(est.pose[0] - twin.pose[0]).max()))
+    for e in (est, twin):
+        e.flush()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    worst = max(worst, float(np.abs(est.p - twin.p).max()))
+    solves = (est.stats["solves"] - solves0, twin.stats["solves"])
+    phase("checkpoint round trip", t0, bytes=path.stat().st_size,
+          frames=STREAM_FRAMES - CHECK_FRAMES, solves=solves,
+          max_abs_dp=worst, launches=counts)
+    if not (worst <= CKPT_TOL and solves[0] == solves[1] > 0
+            and twin.solver_flag == twin.NON_LINEAR):
+        raise AssertionError(f"checkpoint round trip: |dp| {worst}, "
+                             f"solves {solves}")
+    return counts
 
 
 def keyframes_to_pose_graph(pg, est):
@@ -1289,7 +1525,35 @@ def fleet(dev):
     if not (e1 < e0 and max(errs.values()) < TOL):
         raise AssertionError(f"pooled calibration: rho error {e0} -> {e1}, "
                              f"card vs CPU {errs}")
+    nums["distributed"] = distributed_pooled_step(dev, off, datas)
     return counts, nums
+
+
+def distributed_pooled_step(dev, states, datas):
+    """pooled_calibration_step under a one-process nccl group
+    (init_distributed at a free localhost port) against the same step
+    without a group, just before it: H, b and dx must be equal (an
+    all-reduce over one process is a copy)."""
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    group = init_distributed(f"localhost:{port}", 1, 0, device=dev)
+    try:
+        backend = torch.distributed.get_backend(group)
+        _, dx, H, b = pooled_calibration_step(states, datas)
+        _, dx_g, H_g, b_g = pooled_calibration_step(states, datas,
+                                                    group=group)
+        torch.cuda.synchronize()
+    finally:
+        torch.distributed.destroy_process_group()
+    diffs = {k: float((a - c).abs().max()) for k, a, c in
+             (("H", H_g, H), ("b", b_g, b), ("dx", dx_g, dx))}
+    nums = dict(backend=backend, world_size=1, max_abs_diff=diffs)
+    phase("distributed pooled step", t0, **nums)
+    if backend != "nccl" or max(diffs.values()) != 0.0:
+        raise AssertionError(f"distributed pooled step: {nums}")
+    return nums
 
 
 def sfm_inputs(seed=5, NF=11, F=160, K=10):
@@ -1616,6 +1880,10 @@ def main():
     launches["image replay A"], nums = image_replay(dev, sim_a)
     image.update(nums)
     print("image replay: " + json.dumps(image))
+    native_sync_check(sim_a)
+    launches["bag replay CLI"], bag = bag_replay_cli(bag_to_dataset(sim_a),
+                                                     dev)
+    print("bag replay CLI: " + json.dumps(bag))
     launches["loop back-end street"], loop, loop_pg = loop_backend(dev)
     print("loop back-end: " + json.dumps(loop))
     launches["fleet"], fleet_nums = fleet(dev)
@@ -1629,7 +1897,7 @@ def main():
         f"{name}={counts[name]} ({path})"
         for name, _ in KERNELS for path, counts in launches.items()))
     main_path = {"lane_cholesky_solve[f32]": "solve_window_batched",
-                 "lane_cholesky_solve[f64]": "image replay A",
+                 "lane_cholesky_solve[f64]": "bag replay CLI",
                  "cholesky_solve": "solve_window_batched"}
     rows = []
     for (name, dtype), meta in KERNELS.items():

@@ -4,7 +4,10 @@ streaming estimator's per-frame step, the tracker's frame program nor the
 EKF step ever waits for the device; the tracker's and the EKF's fetches
 wait for their own streams only; the device tracker runs without OpenCV;
 the pose graph's Gauss-Newton queues without a wait and agrees with the
-CPU at 512 and 1024 nodes; the fleet solve reaches the lane kernel.
+CPU at 512 and 1024 nodes; the fleet solve reaches the lane kernel; a card
+replay runs the native sensor sync (equal to one on PySensorSync), its
+steps stay sync-free with the debug hooks off and a metrics logger on; the
+pooled calibration step under a one-process nccl group.
 (chip_smoke.py holds the kernels to their plain versions and the card's
 solve, replays, tracker and EKF to the CPU's.) Every test here but the last
 needs a CUDA device and skips without one.
@@ -466,3 +469,101 @@ def test_pinhole_camera_without_opencv(monkeypatch):
     with pytest.raises(ImportError, match="OpenCV"):
         FisheyeCamera(460.0, 460.0, 320.0, 240.0).undistort_normalize(
             np.ones((1, 2)))
+
+
+def _replay_card(cuda, use_native, spy=None, metrics=None):
+    """Sequence A's first 12 frames on the card at F = 32, 2 iterations;
+    spy, if given, stands in for estimator._streaming_step."""
+    import dataclasses
+
+    from cerberus_tpu_torch.config import EstimatorConfig
+    from cerberus_tpu_torch.data.replay import replay
+    from cerberus_tpu_torch.data.simulator import SimConfig, simulate
+    from cerberus_tpu_torch.estimator import estimator as E
+
+    cfg = dataclasses.replace(EstimatorConfig(), max_features=32,
+                              max_num_iterations=2)
+    est = E.Estimator(cfg, device=cuda, use_native=use_native)
+    est.metrics = metrics
+    step = E._streaming_step
+    if spy is not None:
+        E._streaming_step = lambda *a, **kw: spy(step, *a, **kw)
+    try:
+        return replay(simulate(SimConfig(duration=1.6, speed=0.5, seed=5)),
+                      est=est, max_frames=12)
+    finally:
+        E._streaming_step = step
+
+
+def test_card_replay_runs_the_native_sync(cuda):
+    """use_native=True: the estimator's sync is the C++ SensorSync (built
+    with g++), and the card replay publishes the same poses as one on
+    PySensorSync (1e-12 m: the intervals are bit-identical)."""
+    from cerberus_tpu_torch import native
+
+    nat = _replay_card(cuda, True)
+    py = _replay_card(cuda, False)
+    assert isinstance(nat["estimator"].sync, native.SensorSync)
+    assert nat["estimator"].solver_flag == nat["estimator"].NON_LINEAR
+    np.testing.assert_array_equal(nat["est_t"], py["est_t"])
+    np.testing.assert_allclose(nat["est_p"], py["est_p"], rtol=0, atol=1e-12)
+
+
+def test_debug_off_keeps_the_step_sync_free(cuda, tmp_path):
+    """With est.debug unset and a MetricsLogger attached, every per-frame
+    step the card replay dispatches runs under CUDA's sync debug mode
+    "error" (each mode's first step runs once before, to make the
+    per-device constants), and the metrics stream holds a solve record
+    per solve."""
+    from cerberus_tpu_torch.utils.metrics import MetricsLogger, read_metrics
+
+    seen = set()
+
+    def strict(step, *args, **kw):
+        if kw["mode"] not in seen:
+            seen.add(kw["mode"])
+            step(*args, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    log = MetricsLogger(str(tmp_path / "m.jsonl"))
+    out = _replay_card(cuda, True, spy=strict, metrics=log)
+    log.close()
+    est = out["estimator"]
+    assert not est.debug and seen
+    solves = [r for r in read_metrics(str(tmp_path / "m.jsonl"))
+              if r["kind"] == "solve"]
+    assert len(solves) == est.stats["solves"] > 0
+
+
+def test_pooled_calibration_step_under_nccl(cuda):
+    """A one-process nccl group (init_distributed at a free port): the
+    pooled step with group= equals the step without a group."""
+    import socket
+
+    import torch.distributed as dist
+
+    from cerberus_tpu_torch.parallel import pooled_calibration_step
+    from cerberus_tpu_torch.parallel.fleet import build_fleet
+    from cerberus_tpu_torch.parallel.mesh import init_distributed
+
+    states, datas, truths = build_fleet(n_segments=1, n_perturb=3, F=16,
+                                        sim_duration=4.0, device=cuda)
+    off = truths._replace(rho=truths.rho + 0.004)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    group = init_distributed(f"localhost:{port}", 1, 0, device=cuda)
+    try:
+        assert dist.get_backend(group) == "nccl"
+        ref = pooled_calibration_step(off, datas)
+        got = pooled_calibration_step(off, datas, group=group)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(got[1:], ref[1:]):
+        assert torch.equal(a, b)

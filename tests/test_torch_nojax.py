@@ -91,6 +91,49 @@ NO_JAX_SCRIPT = textwrap.dedent("""
     assert torch.isfinite(res.cost).all()
     new, dx, H, b = pooled_calibration_step(states, datas)
     assert torch.isfinite(dx).all()
+    import os, tempfile
+    from cerberus_tpu_torch import native
+    from cerberus_tpu_torch.data import replay as replay_mod
+    from cerberus_tpu_torch.data.log_adapter import (A1_TOPICS,
+                                                     convert_rosbag)
+    from cerberus_tpu_torch.data.rosbag import (BagWriter, ImuMsg,
+                                                JointStateMsg)
+    from cerberus_tpu_torch.ops.preintegration import (PreintParams,
+                                                       imu_preintegrate)
+    from cerberus_tpu_torch.utils.checkpoint import (load_estimator,
+                                                     save_estimator)
+    from cerberus_tpu_torch.utils.metrics import MetricsLogger, read_metrics
+    tmp = tempfile.mkdtemp()
+    est = out["estimator"]
+    assert isinstance(est.sync, native.SensorSync)
+    save_estimator(est, os.path.join(tmp, "est.npz"))
+    back = load_estimator(Estimator(est.cfg, device="cpu"),
+                          os.path.join(tmp, "est.npz"))
+    assert back.frame_count == est.frame_count
+    bag = os.path.join(tmp, "a1.bag")
+    with BagWriter(bag) as w:
+        for k in range(300):
+            t = 1000.0 + 0.002 * k
+            w.write(A1_TOPICS["imu"], ImuMsg(stamp=t, acc=np.array([0, 0, 9.8]),
+                                             gyr=np.zeros(3)))
+            w.write(A1_TOPICS["leg"], JointStateMsg(
+                stamp=t, position=np.zeros(16), velocity=np.zeros(16),
+                effort=np.zeros(16)))
+    ds = convert_rosbag(bag, os.path.join(tmp, "ds"))
+    assert len(ds["t"]) == 300
+    log = MetricsLogger(os.path.join(tmp, "m.jsonl"))
+    log.log("solve", t=0.0, cost=1.0)
+    log.close()
+    assert read_metrics(os.path.join(tmp, "m.jsonl"))[0]["kind"] == "solve"
+    cli = replay_mod._main(["--sim", "0.4", "--path", "arc", "--device",
+                            "cpu", "--max-frames", "2"])
+    assert cli["estimator"].frame_count == 2
+    params = PreintParams.from_config(EstimatorConfig(), device="cpu")
+    z = torch.zeros((4, 3), dtype=torch.float64)
+    pre = imu_preintegrate(torch.full((4,), 0.002, dtype=torch.float64), z,
+                           z, torch.tensor([False, True, True, True]),
+                           z[0], z[0], params)
+    assert float(pre.sum_dt) == 0.006
     assert not any(name == "jax" or name.startswith(("jax.", "jaxlib"))
                    or name.startswith("cerberus_tpu.")
                    for name, mod in sys.modules.items() if mod is not None)
@@ -170,6 +213,21 @@ def test_loop_sfm_parallel_entry_points_default_to_cuda():
                                                   9.8),
                  lambda: al.solve_gyroscope_bias(q, []),
                  lambda: al.solve_gyro_leg_bias(q, z3, [])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
+def test_runtime_entry_points_default_to_cuda():
+    """The replay command line and init_distributed ask for the card too:
+    without --device / device= each raises where there is none, and the
+    native sync has no device to ask for."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cerberus_tpu_torch.data.replay import _main
+    from cerberus_tpu_torch.parallel.mesh import init_distributed
+
+    for make in (lambda: _main(["--sim", "0.4", "--max-frames", "1"]),
+                 lambda: init_distributed("localhost:1", 1, 0)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
 
