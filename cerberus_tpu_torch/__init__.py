@@ -24,3 +24,5 @@ device.
 """
 
 __version__ = "0.1.0"
+
+from cerberus_tpu_torch.config import EstimatorConfig, NoiseConfig, RobotModel  # noqa: E402,F401

@@ -12,7 +12,7 @@ from scipy.spatial.transform import Rotation
 
 from cerberus_tpu_torch import config as C
 from cerberus_tpu_torch.config import EstimatorConfig
-from cerberus_tpu_torch.device import full_f32_matmuls, resolve_device
+from cerberus_tpu_torch.device import matmul_precision, resolve_device
 from cerberus_tpu_torch.estimator.packing import (default_free_mask,
                                                   pack_window_data)
 from cerberus_tpu_torch.ops import factors as fac
@@ -32,7 +32,7 @@ def build_window_from_sim(sim, cfg: EstimatorConfig | None = None,
     f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
     preints = []
-    with full_f32_matmuls():
+    with matmul_precision("highest"):
         for k in range(10):
             s, e = kf_imu[k], kf_imu[k + 1]
             sl = slice(s, e + 1)

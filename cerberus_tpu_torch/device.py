@@ -20,20 +20,34 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-@contextlib.contextmanager
-def full_f32_matmuls():
-    """Run float32 matmuls and convolutions in full float32, never TF32.
+# TF32 allowed for float32 matmuls and convolutions, per precision name
+_TF32 = {"highest": False, "high": True}
 
-    The counterpart of the JAX package's
-    `jax.default_matmul_precision("highest")`: TF32 keeps ~3 decimal digits,
-    which swamps the weakest gradient directions (rho calibration, td) of the
-    window assembly. Sets `torch.backends.cuda.matmul.allow_tf32` and
-    `torch.backends.cudnn.allow_tf32` to False for the block and restores
-    them after."""
+
+@contextlib.contextmanager
+def matmul_precision(precision: str = "highest"):
+    """Run float32 matmuls and convolutions at `precision` for the block,
+    then restore `torch.backends.cuda.matmul.allow_tf32` and
+    `torch.backends.cudnn.allow_tf32`.
+
+    "highest": full float32, never TF32 — the counterpart of the JAX
+    package's `jax.default_matmul_precision("highest")`; TF32 keeps ~3
+    decimal digits, which swamps the weakest gradient directions (rho
+    calibration, td) of the window assembly.
+    "high": TF32 allowed, what `torch.set_float32_matmul_precision("high")`
+    means on the card (~2x GEMM throughput at ~1e-3 relative error per
+    product). This is not the JAX package's "high", which on the TPU is
+    three bf16 passes (~1e-6 relative); check convergence costs before
+    trusting results at "high".
+    float64 and the CPU are unaffected: there both names compute the same.
+    Any other name raises ValueError."""
+    if precision not in _TF32:
+        raise ValueError(f"matmul precision {precision!r}: want one of "
+                         f"{sorted(_TF32)}")
     old = (torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = _TF32[precision]
+    torch.backends.cudnn.allow_tf32 = _TF32[precision]
     try:
         yield
     finally:

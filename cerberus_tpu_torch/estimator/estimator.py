@@ -44,7 +44,7 @@ from torch.profiler import record_function
 from cerberus_tpu_torch import config as C
 from cerberus_tpu_torch import native
 from cerberus_tpu_torch.config import EstimatorConfig
-from cerberus_tpu_torch.device import full_f32_matmuls, resolve_device
+from cerberus_tpu_torch.device import matmul_precision, resolve_device
 from cerberus_tpu_torch.estimator.feature_manager import FeatureManager
 from cerberus_tpu_torch.estimator.packing import (build_window_data,
                                                   coerce_preints,
@@ -68,7 +68,7 @@ def _preint_kernel(raw: dict, ba, bg, rho, params: PreintParams,
     """il_preintegrate_parallel of one padded raw buffer (tensors), at full
     float32 matmul precision (the JAX package pins 'highest' here: the small
     d eps / d rho terms are the rho-calibration signal)."""
-    with full_f32_matmuls():
+    with matmul_precision("highest"):
         return il_preintegrate_parallel(
             raw["dt"], raw["acc"], raw["gyr"], raw["phi"], raw["dphi"],
             raw["c"], raw["mask"], ba, bg, rho, params, ff_init=ff_init)
@@ -114,7 +114,7 @@ def _streaming_step(st0, pres, ivalid, feats_pad, prior, free_mask, gravity,
             pre9 = _fold_preint(raw9, pres, 9, st0.ba[9], st0.bg[9],
                                 st0.rho[9], params)
         pres = tuple(pres[:9]) + (pre9,)
-    with full_f32_matmuls():
+    with matmul_precision("highest"):
         with record_function("build_window_data"):
             data = build_window_data(
                 pres, ivalid, feats_pad, prior, free_mask, gravity, calib,
@@ -978,7 +978,7 @@ class Estimator:
         data, feats, slots, depths = self._pack()
         st = self._window_state(depths)
         if margin_flag == MARGIN_OLD or self.prior is not None:
-            with full_f32_matmuls():
+            with matmul_precision("highest"):
                 if margin_flag == MARGIN_OLD:
                     pj, pr, valid = marg.marginalize_old(st, data)
                     lin = _shift_state(st)
@@ -1138,7 +1138,7 @@ def _cost_breakdown(st: fac.WindowState, data: fac.WindowData, F: int):
     host."""
     zero = torch.zeros((fac.tangent_dim(F),), dtype=st.p.dtype,
                        device=st.p.device)
-    with full_f32_matmuls():
+    with matmul_precision("highest"):
         r = fac.window_residuals(st, zero, data).cpu().numpy()
     s = 310 + F * 44
     return (float(0.5 * (r[:310] ** 2).sum()),

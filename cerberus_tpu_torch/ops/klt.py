@@ -34,7 +34,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from cerberus_tpu_torch.device import full_f32_matmuls
+from cerberus_tpu_torch.device import matmul_precision
 
 _G5 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 _INT32_MAX = 2 ** 31 - 1
@@ -276,7 +276,7 @@ def _greedy_mask(pts, status, priority, min_dist, shape):
             & keep_o[None, :]).to(torch.float32)                # (H, N)
     in_c = ((cols.T >= x0[None, :])
             & (cols.T < x0[None, :] + side)).to(torch.float32)  # (W, N)
-    with full_f32_matmuls():
+    with matmul_precision("highest"):
         occ = (in_r @ in_c.T) > 0
     return keep, occ
 

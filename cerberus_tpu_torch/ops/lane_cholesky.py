@@ -11,12 +11,17 @@ does not take raises.
 `tile_plan` is the kernels' layout (tile width, padded n, resident or
 streamed tiles, shared memory), shared with `ops/cholesky_solve.py`.
 
-`LAUNCHES` counts the kernel's launches and `LAUNCHES_BY_DTYPE` splits them
-by dtype, so a run can show that its solves went through the kernel.
+`LAUNCHES` counts the kernel's launches by (dtype, n), so a run can show
+that its solves went through the kernel at the shapes it expects.
+
+`lane_cholesky_solve_ref` is the library route (`torch.linalg`), which the
+caller picks explicitly (`solve_window_batched(lane_chol=False)`); nothing
+falls back to it.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -25,8 +30,7 @@ import torch
 
 from cerberus_tpu_torch import _build
 
-LAUNCHES = 0
-LAUNCHES_BY_DTYPE = {torch.float32: 0, torch.float64: 0}
+LAUNCHES = collections.Counter()   # (dtype, n) -> launches
 
 SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on sm_90
 
@@ -138,10 +142,19 @@ def lane_cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError("lane_cholesky_solve launch failed: "
                            + lib.lane_cholesky_error_string(err).decode())
-    global LAUNCHES
-    LAUNCHES += 1
-    LAUNCHES_BY_DTYPE[A.dtype] += 1
+    LAUNCHES[(A.dtype, n)] += 1
     return x
+
+
+def lane_cholesky_solve_ref(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The library's solve of the same systems: `torch.linalg.cholesky_ex`
+    (no error check read back to the host) and `torch.cholesky_solve`, on
+    any device. The counterpart of the JAX package's
+    `lane_cholesky_solve_ref`: the op the kernel replaces, for a caller that
+    asks for it by name. A system that is not SPD gives what the library
+    gives (a partial factor), not necessarily NaN."""
+    L = torch.linalg.cholesky_ex(A).L
+    return torch.cholesky_solve(b[..., None], L)[..., 0]
 
 
 def cholesky_plain(A: torch.Tensor) -> torch.Tensor:

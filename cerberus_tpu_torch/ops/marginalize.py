@@ -119,14 +119,16 @@ def _project_out_gauge(H, b, state: fac.WindowState, keep_mask=None):
     return P @ H @ P, P @ b
 
 
-def _gauge_projector(state: fac.WindowState, dim: int, keep_mask=None):
-    """P = I - N (N^T N + 1e-12 I)^-1 N^T, N the gauge basis (rows outside
-    `keep_mask` zeroed)."""
+def _gauge_projector(state: fac.WindowState, dim: int, keep_mask=None,
+                     eps: float = 1e-12):
+    """P = I - N (N^T N + eps I)^-1 N^T, N the gauge basis (rows outside
+    `keep_mask` zeroed); the solver's full-system projection takes
+    eps = 1e-10, as the JAX solver's does."""
     dtype, dev = state.p.dtype, state.p.device
     N = _gauge_null_basis(state, dim)
     if keep_mask is not None:
         N = N * keep_mask.to(dtype)[:, None]
-    G = N.T @ N + 1e-12 * torch.eye(4, dtype=dtype, device=dev)
+    G = N.T @ N + eps * torch.eye(4, dtype=dtype, device=dev)
     # solve_ex: no error check read back to the host
     return torch.eye(dim, dtype=dtype, device=dev) \
         - N @ torch.linalg.solve_ex(G, N.T).result

@@ -545,8 +545,8 @@ def il_preintegrate(dt, acc, gyr, phi, dphi, c, mask, ba, bg, rho,
         ff_idx) for the contact model 2 adaptive force threshold.
 
     Runs on the inputs' device, one eager step per sample; callers wrap it
-    in `device.full_f32_matmuls()` on the card (the JAX package pins
-    'highest' matmul precision here for the rho-calibration terms).
+    in `device.matmul_precision("highest")` on the card (the JAX package
+    pins 'highest' matmul precision here for the rho-calibration terms).
     """
     carry = il_init_carry(acc[0], gyr[0], phi[0], dphi[0], c[0],
                           ff_init=ff_init)
@@ -582,9 +582,17 @@ def _quat_prefix(dq_steps):
     out = dq_steps
     off = 1
     while off < out.shape[0]:
-        out = torch.cat([out[:off], lie.quat_mul(out[:-off], out[off:])])
+        out = torch.cat([out[:off], quat_mul_assoc(out[:-off], out[off:])])
         off *= 2
     return out / torch.linalg.vector_norm(out, dim=-1, keepdim=True)
+
+
+def quat_mul_assoc(q, p):
+    """Hamilton product broadcast over leading axes: the combine of a
+    parallel prefix of rotations, dq_total = dq_a (x) dq_b with a preceding
+    b in scan order (a later rotation composes on the right, matching the
+    sequential dq_new = dq (x) delta_q). `_quat_prefix` applies it."""
+    return lie.quat_mul(q, p)
 
 
 def _check_contiguous_mask(mask):

@@ -3,31 +3,38 @@
 
 Replaces the reference's Ceres DENSE_SCHUR + DOGLEG solve
 (reference: estimator.cpp:1221-1236). Each iteration assembles the
-Gauss-Newton blocks at the candidate state (ops/structured.py), projects the
-4-dim gauge null space out, eliminates the diagonal inverse-depth block in
-closed form and solves the 222-dim reduced Schur system with
-`ops/lane_cholesky.lane_cholesky_solve`: the hand-written CUDA kernel for
-CUDA tensors, its plain torch version for CPU tensors, whatever the batch
-size. Gauge freedom (global position + yaw) is re-anchored to frame 0
-afterwards (estimator.cpp:903-1000 double2vector).
+Gauss-Newton system at the candidate state and solves its damped,
+Jacobi-equilibrated form with `ops/lane_cholesky.lane_cholesky_solve`: the
+hand-written CUDA kernel for CUDA tensors, its plain torch version for CPU
+tensors, whatever the batch size. Gauge freedom (global position + yaw) is
+re-anchored to frame 0 afterwards (estimator.cpp:903-1000 double2vector).
 
-The port always runs the JAX package's production options (structured
-assembly, Schur-on-depth, gauge projection), so `SolveOptions` has no
-switches for them. The JAX package's early-exit `while_loop` (and
-`solve_window_batched`'s `scan`) is a Python loop of exactly `max_iters`
-iterations with a masked accept: once a window has converged its state,
-lambda, cost and accept count stay frozen, which gives the JAX loop's
-iterates. Nothing in the loop reads a value back to the host.
+`SolveOptions` picks the path, as in the JAX package:
+- structured and schur (the production default): the structured blocks
+  (ops/structured.py), the rank-4 gauge projection on them, closed-form
+  elimination of the diagonal inverse-depth block and a 222-dim Cholesky
+  of the reduced Schur system;
+- otherwise the full (222 + F)-dim system: `build_normal_equations`
+  (structured) or J^T J, J^T r of the dense `factors.linearize`, the
+  full-dim gauge projection, and a Cholesky of all 222 + F dims
+  (`_damped_solve`: n = 382 at the estimator's F = 160).
+project_gauge=False skips the projection on either path.
+
+The JAX package's early-exit `while_loop` (and `solve_window_batched`'s
+`scan`) is a Python loop of exactly `max_iters` iterations with a masked
+accept: once a window has converged its state, lambda, cost and accept
+count stay frozen, which gives the JAX loop's iterates. Nothing in the loop
+reads a value back to the host.
 
 Profiler spans: `lm_solve` (one solve), `assemble` (max_iters + 1 per
-solve) and `solve_step` (max_iters per solve), for torch.profiler
-(`chip_smoke.py --profile` reads them); without a profiler the 2 max_iters
-+ 2 spans cost under a millisecond of host time a solve.
+solve) and `solve_step` (max_iters per solve) on every path, for
+torch.profiler (`chip_smoke.py --profile` reads them); without a profiler
+the 2 max_iters + 2 spans cost under a millisecond of host time a solve.
 
-Matmul precision: the entry points run under `device.full_f32_matmuls()`,
-which sets `torch.backends.cuda.matmul.allow_tf32 = False` and
-`torch.backends.cudnn.allow_tf32 = False` for the solve — the counterpart
-of the JAX package's `default_matmul_precision("highest")`.
+Matmul precision: `solve_window` runs under
+`device.matmul_precision("highest")` (no TF32), the counterpart of the JAX
+package's `default_matmul_precision("highest")`; `solve_window_batched` takes the
+precision as `gemm_precision` (`device.matmul_precision`).
 """
 
 from __future__ import annotations
@@ -38,11 +45,14 @@ import torch
 from torch.func import vmap
 from torch.profiler import record_function
 
-from cerberus_tpu_torch.device import full_f32_matmuls
+from cerberus_tpu_torch.device import matmul_precision
 from cerberus_tpu_torch.ops import factors as fac
-from cerberus_tpu_torch.ops.lane_cholesky import lane_cholesky_solve
-from cerberus_tpu_torch.ops.marginalize import _gauge_null_basis
-from cerberus_tpu_torch.ops.structured import build_normal_equations_blocks
+from cerberus_tpu_torch.ops.lane_cholesky import (lane_cholesky_solve,
+                                                  lane_cholesky_solve_ref)
+from cerberus_tpu_torch.ops.marginalize import (_gauge_null_basis,
+                                                _gauge_projector)
+from cerberus_tpu_torch.ops.structured import (build_normal_equations,
+                                               build_normal_equations_blocks)
 from cerberus_tpu_torch.utils import lie
 
 
@@ -56,10 +66,21 @@ class SolveOptions(NamedTuple):
                                   # not blow up as lam decays over iterations
     lam_max: float = 1e8
     diag_floor: float = 1e-8
+    structured: bool = True       # factor-sparse H assembly (ops/structured.py)
+                                  # False = dense jacfwd J then J^T J
     function_tolerance: float = 1e-6  # stop on relative cost decrease
                                       # (Ceres function_tolerance semantics)
     step_clip: float = 1.0        # scale the whole step if any component
                                   # exceeds this (m / rad / unit inverse-depth)
+    project_gauge: bool = True    # project the analytic 4-dim gauge null
+                                  # space (global translation + yaw) out of
+                                  # (H, b) each iteration so roundoff gradient
+                                  # along it can never drive a huge step
+    schur: bool = True            # eliminate the (diagonal) inverse-depth
+                                  # block in closed form before the dense
+                                  # Cholesky — algebraically identical to the
+                                  # full solve, O((222+F)^3) -> O(222^3)
+                                  # (requires structured=True)
 
 
 class SolveInfo(NamedTuple):
@@ -69,11 +90,25 @@ class SolveInfo(NamedTuple):
     accepted: torch.Tensor   # number of accepted steps
 
 
-def _damped_solve_schur(H_pp, H_pd, h_dd, b_p, b_d, lam, opts: SolveOptions):
+def _damped_solve(H, b, lam, opts: SolveOptions, chol=lane_cholesky_solve):
     """Solve (H + lam*diag(H)) dx = -b with Jacobi equilibration, for a batch
-    of windows (leading axis B; lam (B,)): closed-form elimination of the
-    diagonal inverse-depth block, then the dense 222-dim reduced system
-    through `lane_cholesky_solve`."""
+    of windows (H (B, n, n), b (B, n), lam (B,)): the full system through
+    `chol` (`lane_cholesky_solve` unless the caller names another)."""
+    n = H.shape[-1]
+    d = torch.sqrt(torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1),
+                               min=opts.diag_floor))
+    Hs = H / (d[:, :, None] * d[:, None, :])
+    eye = torch.eye(n, dtype=H.dtype, device=H.device)
+    A = Hs + (lam[:, None, None] + 1e-12) * eye
+    return chol(A.contiguous(), (-b / d).contiguous()) / d
+
+
+def _damped_solve_schur(H_pp, H_pd, h_dd, b_p, b_d, lam, opts: SolveOptions,
+                        chol=lane_cholesky_solve):
+    """Schur-on-depth version of `_damped_solve`, for a batch of windows
+    (leading axis B; lam (B,)): closed-form elimination of the diagonal
+    inverse-depth block in the same equilibrated, identically damped system,
+    then the dense 222-dim reduced system through `chol`."""
     D = H_pp.shape[-1]
     d_p = torch.sqrt(torch.clamp(torch.diagonal(H_pp, dim1=-2, dim2=-1),
                                  min=opts.diag_floor))
@@ -87,7 +122,7 @@ def _damped_solve_schur(H_pp, H_pd, h_dd, b_p, b_d, lam, opts: SolveOptions):
     W = Hs_pd / a_dd[:, None, :]                         # (B, D, F)
     S = A_pp - torch.einsum("bdf,bef->bde", W, Hs_pd)
     rhs = -b_p / d_p + torch.einsum("bdf,bf->bd", W, b_d / d_d)
-    y_p = lane_cholesky_solve(S.contiguous(), rhs.contiguous())
+    y_p = chol(S.contiguous(), rhs.contiguous())
     y_d = (-b_d / d_d - torch.einsum("bdf,bd->bf", Hs_pd, y_p)) / a_dd
     return torch.cat([y_p / d_p, y_d / d_d], dim=1)
 
@@ -111,20 +146,62 @@ def _project_gauge_blocks(H_pp, H_pd, b_p, st: fac.WindowState, free_mask):
     return H_pp, H_pd, b_p
 
 
-def _assemble_one(st: fac.WindowState, data: fac.WindowData):
-    """Gauge-projected Schur blocks and robust cost of one window."""
+def _project_gauge_full(H, b, st: fac.WindowState, data: fac.WindowData):
+    """H <- P H P, b <- P b on one window's full (222 + F)-dim system with
+    P = I - N (N^T N + 1e-10 I)^-1 N^T: every factor is relative, so H is
+    exactly singular along global translation + yaw, and roundoff gradient
+    along them would turn into an arbitrarily large cost-neutral step at
+    small lam. The basis is masked by [free_mask, f_valid]."""
+    P = _gauge_projector(st, H.shape[0],
+                         torch.cat([data.free_mask, data.f_valid]), eps=1e-10)
+    return P @ H @ P, P @ b
+
+
+def _assemble_schur(st: fac.WindowState, data: fac.WindowData,
+                    opts: SolveOptions):
+    """Schur blocks (gauge-projected unless opts says not) and robust cost
+    of one window."""
     F = st.depth.shape[0]
     H_pp, H_pd, h_dd, b_p, b_d, r0 = build_normal_equations_blocks(st, data)
-    H_pp, H_pd, b_p = _project_gauge_blocks(H_pp, H_pd, b_p, st,
-                                            data.free_mask)
+    if opts.project_gauge:
+        H_pp, H_pd, b_p = _project_gauge_blocks(H_pp, H_pd, b_p, st,
+                                                data.free_mask)
     return (H_pp, H_pd, h_dd, b_p, b_d), fac.robust_cost(r0, F)
 
 
-def _lm(states: fac.WindowState, datas: fac.WindowData, opts: SolveOptions):
-    """The LM iterations over a batch of windows (leading axis B)."""
+def _assemble_full(st: fac.WindowState, data: fac.WindowData,
+                   opts: SolveOptions):
+    """The full (222 + F)-dim (H, b), structured or J^T J of the dense
+    linearization, gauge-projected unless opts says not, and the robust
+    cost of one window."""
+    F = st.depth.shape[0]
+    if opts.structured:
+        H, b, r0 = build_normal_equations(st, data)
+    else:
+        r, J, r0 = fac.linearize(st, data)
+        H = J.T @ J
+        b = J.T @ r
+    if opts.project_gauge:
+        H, b = _project_gauge_full(H, b, st, data)
+    return (H, b), fac.robust_cost(r0, F)
+
+
+def _lm(states: fac.WindowState, datas: fac.WindowData, opts: SolveOptions,
+        chol=lane_cholesky_solve):
+    """The LM iterations over a batch of windows (leading axis B), on the
+    path `opts` picks; the dense solves go through `chol`."""
     B = states.p.shape[0]
     dtype, dev = states.p.dtype, states.p.device
-    assemble = vmap(_assemble_one)
+    if opts.structured and opts.schur:
+        assemble = vmap(lambda st, d: _assemble_schur(st, d, opts))
+
+        def solve_step(pieces, lam):
+            return _damped_solve_schur(*pieces, lam, opts, chol)
+    else:
+        assemble = vmap(lambda st, d: _assemble_full(st, d, opts))
+
+        def solve_step(pieces, lam):
+            return _damped_solve(*pieces, lam, opts, chol)
 
     def pick(ok, a, b):
         return torch.where(ok.reshape((B,) + (1,) * (a.ndim - 1)), a, b)
@@ -138,7 +215,7 @@ def _lm(states: fac.WindowState, datas: fac.WindowData, opts: SolveOptions):
     acc = torch.zeros((B,), dtype=torch.int32, device=dev)
     for _ in range(opts.max_iters):
         with record_function("solve_step"):
-            dx = _damped_solve_schur(*pieces, lam, opts)
+            dx = solve_step(pieces, lam)
         mx = torch.amax(torch.abs(dx), dim=1, keepdim=True)
         dx = dx * torch.clamp(opts.step_clip / torch.clamp(mx, min=1e-30),
                               max=1.0)
@@ -163,27 +240,53 @@ def _lm(states: fac.WindowState, datas: fac.WindowData, opts: SolveOptions):
 
 def solve_window(state: fac.WindowState, data: fac.WindowData,
                  opts: SolveOptions = SolveOptions()):
-    """Run LM on one window. Returns (new_state, SolveInfo).
+    """Run LM on one window under any option set. Returns (new_state,
+    SolveInfo).
 
     The same iterations as `solve_window_batched` on a batch of one: every
-    iteration launches the Cholesky kernel once (B = 1) on CUDA tensors."""
+    iteration launches the Cholesky kernel once (B = 1) on CUDA tensors, at
+    n = 222 on the Schur path and n = 222 + F on the full path."""
     one = lambda x: x[None]
-    st, info = solve_window_batched(fac.map_tensors(one, state),
-                                    fac.map_tensors(one, data), opts)
+    with matmul_precision("highest"), record_function("lm_solve"):
+        st, info = _lm(fac.map_tensors(one, state),
+                       fac.map_tensors(one, data), opts)
     first = lambda x: x[0]
     return fac.map_tensors(first, st), SolveInfo(*map(first, info))
 
 
 def solve_window_batched(states: fac.WindowState, datas: fac.WindowData,
-                         opts: SolveOptions = SolveOptions()):
-    """Batched LM over B windows (every field with a leading axis B).
+                         opts: SolveOptions = SolveOptions(),
+                         lane_chol: bool | None = None,
+                         gemm_precision: str = "highest"):
+    """Batched LM over B windows (every field with a leading axis B), on the
+    production path: opts.structured, schur and project_gauge, else
+    ValueError (the JAX package asserts the same).
 
     The assembly, gauge projection and cost of each window run under
     `torch.func.vmap`; the reduced Schur systems of all B windows are solved
-    by one `lane_cholesky_solve` per iteration, `max_iters` in all.
+    by one batched Cholesky solve per iteration, `max_iters` in all.
+
+    lane_chol: None = `lane_cholesky_solve` (the kernel on CUDA tensors, its
+    plain version on CPU tensors); True = the kernel, and ValueError on CPU
+    tensors; False = `lane_cholesky_solve_ref`, the library route. Any batch
+    size takes the kernel: the JAX package's `B % LANES == 0` condition is
+    its TPU kernel's lane layout, not a change of result.
+    gemm_precision: float32 matmul precision of the assembly and the solve,
+    "highest" (default, no TF32) or "high" (TF32; see
+    `device.matmul_precision`, and check convergence costs before trusting
+    results at "high").
     Returns (new_states, SolveInfo) with a leading axis B on every field."""
-    with full_f32_matmuls(), record_function("lm_solve"):
-        return _lm(states, datas, opts)
+    if not (opts.structured and opts.schur and opts.project_gauge):
+        raise ValueError("solve_window_batched runs the production options "
+                         "(structured, schur, project_gauge); solve_window "
+                         "takes the others")
+    if lane_chol and states.p.device.type != "cuda":
+        raise ValueError(f"lane_chol=True needs CUDA tensors: the kernel has "
+                         f"no CPU mode (got {states.p.device})")
+    chol = lane_cholesky_solve_ref if lane_chol is False \
+        else lane_cholesky_solve
+    with matmul_precision(gemm_precision), record_function("lm_solve"):
+        return _lm(states, datas, opts, chol)
 
 
 def reanchor(old: fac.WindowState, new: fac.WindowState) -> fac.WindowState:

@@ -3,7 +3,9 @@ wrappers refuse what the kernels do not take; neither the LM loop, the
 streaming estimator's per-frame step, the tracker's frame program nor the
 EKF step ever waits for the device; the tracker's and the EKF's fetches
 wait for their own streams only; the device tracker runs without OpenCV;
-the pose graph's Gauss-Newton queues without a wait and agrees with the
+the solver's full-system paths (TFT, FxT) never wait either and reach the
+f64 kernel at n = 222 + F, which agrees with its plain version at n = 382
+and 384; the pose graph's Gauss-Newton queues without a wait and agrees with the
 CPU at 512 and 1024 nodes; the fleet solve reaches the lane kernel; a card
 replay runs the native sensor sync (equal to one on PySensorSync), its
 steps stay sync-free with the debug hooks off and a metrics logger on; the
@@ -180,6 +182,47 @@ def test_lm_loop_never_waits_for_the_device(small_batch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("structured", [True, False])
+def test_full_system_solve_never_waits_for_the_device(small_batch,
+                                                      structured):
+    """The solver's full (222 + F)-dim paths, TFT (structured H) and FxT
+    (J^T J of the dense linearization), on one window in f64: no operation
+    reads back from or waits for the card, and every LM iteration launches
+    the f64 kernel once at n = 222 + F."""
+    from cerberus_tpu_torch.ops.solver import SolveOptions, solve_window
+    from cerberus_tpu_torch.ops import factors as fac
+
+    states, datas = small_batch
+    first = lambda x: x[0].double() if x.is_floating_point() else x[0]
+    st, data = fac.map_tensors(first, states), fac.map_tensors(first, datas)
+    n = 222 + data.f_valid.shape[0]
+    opts = SolveOptions(max_iters=2, structured=structured, schur=False)
+    solve_window(st, data, opts)
+    torch.cuda.synchronize()
+    lc.LAUNCHES.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, info = solve_window(st, data, opts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert dict(lc.LAUNCHES) == {(torch.float64, n): 2}
+    assert torch.isfinite(new.p).all() and info.cost <= info.cost0
+
+
+@pytest.mark.parametrize("B,n", [(1, 382), (2, 384)])
+def test_kernel_f64_at_the_full_system(cuda, B, n):
+    """The f64 kernel at the solver's full-system size (222 + 160, padded to
+    384: 24 tiles a side, streamed from the workspace) against its plain
+    version, 1e-10 relative."""
+    A, b = _spd(9 * n + B, B, n, cuda)
+    A, b = A.double(), b.double()
+    assert not lc.tile_plan(n, torch.float64).resident
+    err = _rel_err(lc.lane_cholesky_solve(A, b),
+                   lc.lane_cholesky_solve_plain(A, b))
+    assert err < 1e-10
 
 
 def test_streaming_step_never_waits_for_the_device(cuda):
@@ -418,14 +461,15 @@ def test_solve_fleet_reaches_the_lane_kernel(cuda):
                                         sim_duration=4.0, device=cuda)
     plain = lc.lane_cholesky_solve_plain
     lc.lane_cholesky_solve_plain = None      # any call would raise
-    before = lc.LAUNCHES_BY_DTYPE[torch.float32]
+    lc.LAUNCHES.clear()
     try:
         res = solve_fleet(states, datas, truths, None,
                           SolveOptions(max_iters=3))
     finally:
         lc.lane_cholesky_solve_plain = plain
     torch.cuda.synchronize()
-    assert lc.LAUNCHES_BY_DTYPE[torch.float32] - before == 3
+    assert sum(k for (dtype, _), k in lc.LAUNCHES.items()
+               if dtype == torch.float32) == 3
     assert torch.isfinite(res.cost).all() and (res.cost <= res.cost0).all()
 
 

@@ -173,10 +173,11 @@ def main():
     for mod in (lc, cs):
         mod._LIB = None
         mod._build = type("Build", (), {"load": staticmethod(libs.get)})
-    for dtype, B in ((torch.float64, 1), (torch.float32, 128),
-                     (torch.float32, 1)):
-        A, b = spd(B, 222, dtype, dev)
-        measure(f"lane_cholesky_solve {dtype} B={B} n=222",
+    # n = 382: the solver's full (222 + F)-dim system, F = 160 (streamed)
+    for dtype, B, n in ((torch.float64, 1, 222), (torch.float64, 1, 382),
+                        (torch.float32, 128, 222), (torch.float32, 1, 222)):
+        A, b = spd(B, n, dtype, dev)
+        measure(f"lane_cholesky_solve {dtype} B={B} n={n}",
                 libs["lane_cholesky"], lambda: lc.lane_cholesky_solve(A, b))
     H, b = spd(3, 384, torch.float32, dev)
     lam = torch.full((3,), 1e-2, device=dev)
