@@ -139,6 +139,7 @@ def replay(sim: dict, cfg: EstimatorConfig | None = None,
 def replay_images(sim: dict, cfg=None, est: Estimator | None = None,
                   tracker=None, renderer=None, max_frames: int | None = None,
                   csv_path: str | None = None, ekf=None,
+                  use_prediction: bool = True,
                   pipeline_frontend: bool = True, device="cuda") -> dict:
     """Full-pipeline replay: rendered stereo images -> feature tracker ->
     estimator — the reference's actual hot path (main.cpp:95-133
@@ -152,6 +153,9 @@ def replay_images(sim: dict, cfg=None, est: Estimator | None = None,
       renderer's pinhole model; the OpenCV front-end (FeatureTracker) runs
       only when passed.
     renderer: ImageRenderer (built from sim when None) or PrerenderedFrames.
+    use_prediction: seed each track with the estimator's predicted pixels
+      of the tracked features; False gives the estimator no
+      predict_callback, so the tracker runs unseeded.
     pipeline_frontend: render+track frame k+1 on a worker thread while the
       estimator's deferred step of frame k completes — the reference's own
       thread split (sync_process tracks while processMeasurements
@@ -176,23 +180,24 @@ def replay_images(sim: dict, cfg=None, est: Estimator | None = None,
                                 flow_back=est.cfg.flow_back,
                                 device=est.device)
 
-    # estimator cam-frame predictions -> pixel seeds for the next track
-    # (reference: predictPtsInNextFrame -> setPrediction,
-    # estimator.cpp:1694-1739 + feature_tracker.cpp:501-518). One
-    # constant-velocity step, as the JAX package measured best;
-    # CERB_PREDICT_STEPS overrides it for experiments, as there.
-    est.predict_steps = int(os.environ.get("CERB_PREDICT_STEPS", "1"))
-    f, cx, cy = renderer.f, renderer.cx, renderer.cy
+    if use_prediction:
+        # estimator cam-frame predictions -> pixel seeds for the next track
+        # (reference: predictPtsInNextFrame -> setPrediction,
+        # estimator.cpp:1694-1739 + feature_tracker.cpp:501-518). One
+        # constant-velocity step, as the JAX package measured best;
+        # CERB_PREDICT_STEPS overrides it for experiments, as there.
+        est.predict_steps = int(os.environ.get("CERB_PREDICT_STEPS", "1"))
+        f, cx, cy = renderer.f, renderer.cx, renderer.cy
 
-    def _seed(pred_cam: dict):
-        px = {}
-        for fid, pc in pred_cam.items():
-            if pc[2] > 0.1:
-                px[fid] = np.array([f * pc[0] / pc[2] + cx,
-                                    f * pc[1] / pc[2] + cy])
-        tracker.set_prediction(px)
+        def _seed(pred_cam: dict):
+            px = {}
+            for fid, pc in pred_cam.items():
+                if pc[2] > 0.1:
+                    px[fid] = np.array([f * pc[0] / pc[2] + cx,
+                                        f * pc[1] / pc[2] + cy])
+            tracker.set_prediction(px)
 
-    est.predict_callback = _seed
+        est.predict_callback = _seed
 
     t = sim["t"]
     cam_idx = set(int(i) for i in sim["cam_idx"])

@@ -574,21 +574,31 @@ class PrerenderedFrames:
     loop, so realtime_factor measures the pipeline the reference actually
     runs per frame: track -> solve -> adopt.
 
-    Memory: uint8 stereo 640x480 is ~0.6 MB/frame pair, held in RAM.
+    Memory: uint8 stereo 640x480 is ~0.6 MB/frame pair (a 470 s / 15 Hz
+    run: ~4.3 GB); pass memmap_path to spill the frames to an .npy file on
+    disk instead of RAM. progress prints a line every 500 frames.
     """
 
-    def __init__(self, renderer, cam_idx):
+    def __init__(self, renderer, cam_idx, memmap_path: str | None = None,
+                 progress: bool = False):
         self._t0 = time.time()
         for a in ("f", "cx", "cy", "W", "H"):
             setattr(self, a, getattr(renderer, a))
         cam_idx = [int(k) for k in cam_idx]
         self.idx = {k: i for i, k in enumerate(cam_idx)}
-        self.buf = np.empty((len(cam_idx), 2, renderer.H, renderer.W),
-                            np.uint8)
+        n = len(cam_idx)
+        shape = (n, 2, renderer.H, renderer.W)
+        if memmap_path:
+            self.buf = np.lib.format.open_memmap(
+                memmap_path, mode="w+", dtype=np.uint8, shape=shape)
+        else:
+            self.buf = np.empty(shape, np.uint8)
         for i, k in enumerate(cam_idx):
             im0, im1 = renderer.render_stereo(k)
             self.buf[i, 0] = im0
             self.buf[i, 1] = im1
+            if progress and i % 500 == 0:
+                print(f"prerender {i}/{n}", flush=True)
         self.prerender_s = time.time() - self._t0
 
     def render_stereo(self, k: int):

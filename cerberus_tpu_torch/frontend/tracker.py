@@ -98,14 +98,14 @@ class FisheyeCamera:
 
 class FeatureTracker:
     def __init__(self, cam0: PinholeCamera, cam1: PinholeCamera | None = None,
-                 max_cnt=120, min_dist=10, flow_back=True):
+                 max_cnt=120, min_dist=10, flow_back=True, use_clahe=True):
         cv2 = _cv2()
         self._cv2 = cv2
         self.cam0, self.cam1 = cam0, cam1
         self.max_cnt = max_cnt
         self.min_dist = min_dist
         self.flow_back = flow_back
-        self.clahe = cv2.createCLAHE(3.0, (8, 8))
+        self.clahe = cv2.createCLAHE(3.0, (8, 8)) if use_clahe else None
 
         self.prev_img = None
         self.prev_pts = np.zeros((0, 2), np.float32)
@@ -124,7 +124,8 @@ class FeatureTracker:
         cv2 = self._cv2
         if img0.ndim == 3:
             img0 = cv2.cvtColor(img0, cv2.COLOR_BGR2GRAY)
-        img0 = self.clahe.apply(img0)
+        if self.clahe is not None:
+            img0 = self.clahe.apply(img0)
 
         cur_pts = np.zeros((0, 2), np.float32)
         # snapshot once: set_prediction may run from another thread while a
@@ -168,7 +169,8 @@ class FeatureTracker:
         if img1 is not None and self.cam1 is not None and len(cur_pts):
             if img1.ndim == 3:
                 img1 = cv2.cvtColor(img1, cv2.COLOR_BGR2GRAY)
-            img1 = self.clahe.apply(img1)
+            if self.clahe is not None:
+                img1 = self.clahe.apply(img1)
             curR, stR, _ = cv2.calcOpticalFlowPyrLK(
                 img0, img1, cur_pts, None, winSize=(21, 21), maxLevel=3)
             stR = stR.reshape(-1).astype(bool)

@@ -52,7 +52,7 @@ Phases, each printed with its elapsed seconds:
      track_frame) on the card against the same functions on the CPU, on 3
      rendered 640x480 stereo pairs of sequence A with equal inputs;
   7. ekf check: the legged EKF on the card against the same filter on the
-     CPU over sequence A's 1,500 samples (f64), each timed per sample;
+     CPU over sequence A's first 300 samples (f64), each timed per sample;
   8. image replay A: the image pipeline at full width — sequence A's 20
      camera frames rendered at 640x480 stereo (prerendered, outside the
      timed loop) -> the device tracker (120 slots, 4 levels, 21x21 patches,
@@ -81,8 +81,8 @@ Phases, each printed with its elapsed seconds:
  10. loop back-end street: the loop closer at full width (LoopCloser
      defaults) on StreetStream's 889 keyframes of the street circuit, the
      pose graph's optimize on the card; gates, counts and times; the guard
-     decisions replayed on the CPU; optimize_pose_graph of the final graph
-     (Nc = 1024) card vs CPU;
+     decisions replayed on the CPU for 30 s; optimize_pose_graph of the
+     final graph (Nc = 1024) card vs CPU;
  11. fleet: build_fleet(4 segments x 32 perturbations) = 128 windows at
      F = 96, f32, through solve_fleet (the f32 kernel's launches counted),
      tests/test_fleet.py's gates, 8 windows against the CPU, windows per
@@ -92,9 +92,33 @@ Phases, each printed with its elapsed seconds:
  12. sfm check: the initial SfM and alignment functions card vs CPU at the
      estimator's window (11 frames, F = 160, 128 hypotheses) and
      tests/test_initial_sfm.py's gates on the card;
- 13. with --profile: one batched solve, one streaming step, one image
+ 13. run configs, in a process of its own (below): `python -m
+     cerberus_tpu_torch.evals.run_configs --configs C --duration 2`
+     in-process for C = 1..6 (the legged EKF alone; IMU + leg; full VILO;
+     rho from a 0.215 m calf; the fleet, f32; the image pipeline with the
+     OpenCV and the device tracker), then `evals.long_run` in feature mode
+     on the Go1 and without leg odometry (3 s each): launches counted per
+     call, the end-to-end tests' gates;
+ 14. long run loop, in a process of its own (below): `python -m
+     cerberus_tpu_torch.evals.long_run --images --tracker device --loop
+     --prerender --path figure8 --speed 1.0 --duration 28` in-process —
+     420 prerendered 640x480 stereo frames -> DeviceTracker -> the default
+     f64 estimator, pipelined -> LoopCloser (defaults, pose graph on the
+     card) on the estimator's own keyframes, 1.1 laps of the figure-eight;
+     gates: no reboot, a loop found, corrected keyframe ATE below the
+     odometric one, the f64 kernel once per LM iteration, ATE and
+     corrected ATE at most 2x the JAX package's on the same run; frames
+     per second, ms per NON_LINEAR frame, tracker ms, prerender seconds,
+     loops, optimizes;
+ 15. with --profile: one batched solve, one streaming step, one image
      replay frame and one pose-graph optimize under torch.profiler, host
      time split by the code's spans and the device time of their kernels.
+
+Phases 13 and 14 are host-bound with the card idle most of the time, and
+each takes minutes: each runs in a child process (CHILDREN) started after
+the build, which makes no launch until the kernels phase has ended (the
+long run prerenders meanwhile), beside phases 4-12; their output is
+printed when they are collected, after phase 12.
 
 Ends with a line of each kernel's launches per path, the card's name and
 power limit, a JSON line of the kernels' numbers, then the result line
@@ -108,6 +132,7 @@ sys.dont_write_bytecode = True
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import os  # noqa: E402
 import socket  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
@@ -183,6 +208,8 @@ TRACK_PAIRS = 3      # rendered stereo pairs of the tracker check
 TRACK_POS_TOL = 1e-2  # px, tracker card vs CPU, points kept by both
 TRACK_AGREE = 0.98   # share of slots whose flags must agree, card vs CPU
 EKF_TOL = 1e-9       # EKF card vs CPU, relative, f64
+EKF_SAMPLES = 300    # samples of the EKF check (run configs' config 1
+#                      drives the filter on the card for 2,000 more)
 ATE_GATE = 0.0041    # m: 2x the JAX package's 0.00204 on the image replay
 BAG_ATE_GATE = 0.0040  # m: 2x the JAX CLI's 0.00200 on the same dataset
 #                        (tools/jax_bag_replay.py, JAX on the CPU, f64)
@@ -199,7 +226,7 @@ ODO_SIGMA_P = 0.006     # m per keyframe step and horizontal axis
 ODO_SIGMA_YAW = 2e-4    # rad per keyframe step
 KF_PIX_NOISE = 0.5      # px (focal 460) on the keyframes' observations
 
-CPU_REPLAY_S = 150   # s: budget of the loop stream's replay on the CPU
+CPU_REPLAY_S = 30    # s: budget of the loop stream's replay on the CPU
 PG_TOL = 1e-9        # optimize_pose_graph card vs CPU, relative, f64
 # the logged-data path: sequence A recorded as an A1 bag (A1_TOPICS), stamps
 # at sim time + BAG_EPOCH (a nonzero epoch like a real bag's, as
@@ -220,6 +247,30 @@ OPTION_SETS = {"TTT": (True, True, True), "TTF": (True, True, False),
 OPTIONS_CPU_ITERS = 4   # LM iterations of the option sets' CPU cross-check
 NUDGE_SAMPLES = 4       # kernel solves nudged by 1e-7 i m: the f32 spread
 #                         that lane_chol=False's worst window is held to
+
+# the long run with loop closure (`long run loop`): the port's
+# `evals/long_run.py` in-process on 28 s of the figure-eight at 1.0 m/s,
+# 420 camera frames (1.1 laps of ~24 m: the start is revisited with the
+# same heading at t = 25 s, more than the closer's exclude_last = 40 nodes
+# later), rendered 640x480 stereo -> DeviceTracker -> the default f64
+# estimator -> LoopCloser (defaults) on the estimator's own keyframes. At
+# 0.75 m/s the first revisit comes after 500 frames, more than fit the
+# script's time limit at 1.9-2.7 s a frame; at 1.25 and 1.5 m/s the JAX
+# package finds no loop on this path
+LONG_RUN_ARGV = ["--images", "--tracker", "device", "--loop", "--prerender",
+                 "--path", "figure8", "--speed", "1.0", "--duration", "28",
+                 "--seed", "77"]
+# the JAX package's numbers on the same run (`python evals/long_run.py
+# --platform cpu` with LONG_RUN_ARGV, JAX on the CPU, f64: 3 loops found,
+# odometric keyframe ATE 0.068 m); gates at 2x
+JAX_LONG_RUN = dict(ate_rmse_m=0.0515, corrected_ate_m=0.048)
+# `run configs`: the port's `evals/run_configs.py` in-process, one config a
+# call, then `evals/long_run.py` in feature mode on the Go1 and without
+# leg odometry
+RUN_CONFIGS_S = "2"
+LONG_RUN_FEATURES = {"long run go1": ["--robot", "go1", "--duration", "3"],
+                     "long run no-leg": ["--no-leg", "--duration", "3"]}
+FLEET_CONFIG_ITERS = 8   # LM iterations of run_configs' config 5
 
 # kernel rows: (name, dtype) -> what the JSON line says of it
 KERNELS = {
@@ -1208,11 +1259,12 @@ def ekf_samples(ekf, sim, n):
 
 
 def ekf_check(dev, sim):
-    """The legged EKF over sequence A's samples on the card and on the CPU
-    (f64): every sample's contacts and the final state, P included, within
-    EKF_TOL relative. Returns the ms per sample on each."""
+    """The legged EKF over sequence A's first EKF_SAMPLES samples on the
+    card and on the CPU (f64): every sample's contacts and the final state,
+    P included, within EKF_TOL relative. Returns the ms per sample on
+    each."""
     t0 = time.perf_counter()
-    n = len(sim["t"])
+    n = EKF_SAMPLES
     card = LeggedEKF(EstimatorConfig(), filter_window=4, device=dev)
     c_card, ms_card = ekf_samples(card, sim, n)
     host = LeggedEKF(EstimatorConfig(), filter_window=4, device="cpu")
@@ -1931,6 +1983,245 @@ def sfm_check(dev):
                         max_rel_err=max(errs.values()))
 
 
+def long_run_loop(dev):
+    """The port's long run with loop closure on the card, in-process:
+    `python -m cerberus_tpu_torch.evals.long_run` with LONG_RUN_ARGV
+    (prerendered 640x480 stereo -> DeviceTracker -> the default f64
+    estimator, pipelined -> LoopCloser on the estimator's keyframes, its
+    pose graph on the card), with the estimator's NON_LINEAR frames timed
+    (FrameClock) and the pose graph's optimizes logged (GuardLog). Gates:
+    no reboot, a loop found, corrected keyframe ATE below the odometric
+    one on the same keyframes, the f64 kernel once per LM iteration, and
+    ATE and corrected ATE at most 2x the JAX package's on the same run.
+    Returns (launches, numbers)."""
+    from cerberus_tpu_torch.evals import long_run
+
+    made = {"frames": 0}
+
+    class CardEstimator(long_run.Estimator):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made["clock"], made["est"] = FrameClock(self, False), self
+            timed = self.input_image
+
+            def counted(t, feats):
+                made["frames"] += 1
+                timed(t, feats)
+
+            self.input_image = counted
+
+    class CardCloser(long_run.LoopCloser):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made["log"], made["closer"] = GuardLog(self.pg), self
+
+    inner = long_run.Estimator, long_run.LoopCloser
+    long_run.Estimator, long_run.LoopCloser = CardEstimator, CardCloser
+    t0 = time.perf_counter()
+    reset_counts()
+    try:
+        res = long_run.main(LONG_RUN_ARGV + ["--device", dev.type])
+        torch.cuda.synchronize()
+    finally:
+        long_run.Estimator, long_run.LoopCloser = inner
+    counts = read_counts()
+    est, closer, log, loop = made["est"], made["closer"], made["log"], \
+        res["loop"]
+    st = est.stats
+    ms = made["clock"].ms
+    nums = dict(frames=made["frames"],
+                frames_per_s=made["frames"] / res["wall_s"],
+                median_ms_per_nonlinear_frame=float(np.median(ms)),
+                median_ms_by_100_frames=[float(np.median(ms[i:i + 100]))
+                                         for i in range(0, len(ms), 100)],
+                track_ms_per_frame=res["track_ms_per_frame"],
+                prerender_s=res["prerender_s"], ate_rmse_m=res["ate_rmse_m"],
+                drift_pct=res["drift_pct"], distance_m=res["distance_m"],
+                keyframes=st["keyframes"], solves=st["solves"],
+                init_solves=st["init_solves"], reboots=st["reboots"],
+                f64_launches=counts["lane_cholesky_solve[f64]"],
+                **{("loop_nodes" if k == "keyframes" else k): v
+                   for k, v in loop.items()},
+                seq_gated=closer.seq_gated,
+                ms_per_device_optimize=1e3 * float(np.mean(log.once_s))
+                if log.once_s else None,
+                device_optimizes=len(log.once_s),
+                ms_per_optimize_call=1e3 * log.optimize_s
+                / max(len(log.calls), 1),
+                phase_s=time.perf_counter() - t0)
+    phase("long run loop", t0, launches=counts, **nums)
+    check_launches("long run loop", {"estimator": est}, counts)
+    gates = {"reboots == 0": st["reboots"] == 0,
+             "solves > 0": st["solves"] > 0,
+             "loops_found >= 1": loop["loops_found"] >= 1,
+             "corrected_ate_m < odometric_kf_ate_m":
+                 loop["corrected_ate_m"] < loop["odometric_kf_ate_m"]}
+    for name, got in (("ate_rmse_m", res["ate_rmse_m"]),
+                      ("corrected_ate_m", loop["corrected_ate_m"])):
+        gates[f"{name} <= 2 x JAX's {JAX_LONG_RUN[name]}"] = \
+            got <= 2 * JAX_LONG_RUN[name]
+    if not all(gates.values()):
+        raise AssertionError(f"long run loop gates: {gates}")
+    return counts, nums
+
+
+def _child_setup():
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def long_run_loop_child():
+    """`long run loop` in a process of its own (start_child): it simulates
+    and prerenders its frames at once, then waits for the parent's release
+    (the kernels phase has ended, so none of its launches overlaps the
+    kernels' timings) before it replays them; prints its phase line, then
+    its launches and numbers as one JSON line."""
+    from cerberus_tpu_torch.evals import long_run
+
+    class ThenWait(long_run.PrerenderedFrames):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            sys.stdin.readline()
+
+    long_run.PrerenderedFrames = ThenWait
+    counts, nums = long_run_loop(_child_setup())
+    print(json.dumps({"launches": {"long run loop": counts},
+                      "numbers": nums}), flush=True)
+
+
+def run_configs_child():
+    """`run configs` in a process of its own (start_child), once the
+    parent releases it: its phase lines, then its launches per path and
+    numbers as one JSON line."""
+    sys.stdin.readline()
+    launches, nums = run_configs(_child_setup())
+    print(json.dumps({"launches": launches, "numbers": nums}), flush=True)
+
+
+# phases that run in processes of their own beside the parent's, each
+# host-bound with the card idle most of the time: name -> its function
+CHILDREN = {"long run loop": "long_run_loop_child",
+            "run configs": "run_configs_child"}
+
+
+def child_log(name):
+    return BAG_DIR / (name.replace(" ", "_") + ".log")
+
+
+def start_child(name):
+    """Start phase `name` of CHILDREN in a child process; it makes no
+    launch before release_child. Its output goes to child_log(name);
+    finish_child collects it."""
+    log_path = child_log(name)
+    log_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.{CHILDREN[name]}()"],
+            cwd=Path(__file__).resolve().parent,
+            env=dict(os.environ, OMP_NUM_THREADS="2"),
+            stdin=subprocess.PIPE, stdout=log, stderr=subprocess.STDOUT)
+    print(f"[{name}] started in process {proc.pid}", flush=True)
+    return proc
+
+
+def release_child(name, proc):
+    """Let a child of start_child make its launches."""
+    proc.stdin.write(b"kernels done\n")
+    proc.stdin.close()
+    print(f"[{name}] released", flush=True)
+
+
+def finish_child(name, proc):
+    """Wait for a child of start_child, print its output, and return its
+    (launches per path, numbers); a failed child raises."""
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    text = child_log(name).read_text()
+    print(f"[{name}] waited {time.perf_counter() - t0:.3f} s for process "
+          f"{proc.pid}, exit code {rc}; its output:", flush=True)
+    print(text.rstrip(), flush=True)
+    if rc != 0:
+        raise AssertionError(f"{name}: exit code {rc}")
+    out = json.loads(text.strip().splitlines()[-1])
+    return out["launches"], out["numbers"]
+
+
+def run_configs(dev):
+    """The port's configuration matrix on the card, in-process:
+    `python -m cerberus_tpu_torch.evals.run_configs --configs C --duration
+    RUN_CONFIGS_S` for C = 1..6, one call each with its launches counted,
+    then `python -m cerberus_tpu_torch.evals.long_run` in feature mode for
+    each of LONG_RUN_FEATURES. Gates: solves > 0 and no reboot in every
+    replay, the f64 kernel once per LM iteration of each (config 5: the
+    f32 kernel once per iteration), config 1's slip-free drift < 20 %,
+    config 4's calf length (rho) closer to the true 0.215 m than to its
+    0.21 start, every config 5 window's cost dropping, config 6 with both
+    trackers. Returns (launches per path, numbers)."""
+    from cerberus_tpu_torch.evals import long_run
+    from cerberus_tpu_torch.evals import run_configs as rc
+
+    ests = []
+
+    def capture(Est):
+        class CardEstimator(Est):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                ests.append(self)
+        return CardEstimator
+
+    inner = rc.Estimator, long_run.Estimator
+    rc.Estimator, long_run.Estimator = capture(rc.Estimator), \
+        capture(long_run.Estimator)
+    runs = [(f"run configs {c}", rc.main,
+             ["--configs", c, "--duration", RUN_CONFIGS_S])
+            for c in "123456"]
+    runs += [(label, long_run.main, argv)
+             for label, argv in LONG_RUN_FEATURES.items()]
+    launches, results, gates, made = {}, {}, {}, {}
+    try:
+        for label, main, argv in runs:
+            t0 = time.perf_counter()
+            first = len(ests)
+            reset_counts()
+            res = main(argv + ["--device", dev.type])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            mine = ests[first:]
+            if label == "run configs 5":
+                want = only({"lane_cholesky_solve[f32]": FLEET_CONFIG_ITERS})
+            else:
+                want = only({"lane_cholesky_solve[f64]": sum(
+                    ITERS * e.stats["solves"]
+                    + E.INIT_ITERS * e.stats["init_solves"] for e in mine)})
+            res = {k: v for k, v in res.items() if k != "_meta"}
+            phase(label, t0, launches=counts, estimators=len(mine),
+                  result=json.dumps(res))
+            gates[f"{label}: launches {counts} == {want}"] = counts == want
+            gates[f"{label}: solves > 0, no reboot"] = all(
+                e.stats["solves"] > 0 and e.stats["reboots"] == 0
+                for e in mine)
+            launches[label], results[label], made[label] = counts, res, mine
+    finally:
+        rc.Estimator, long_run.Estimator = inner
+    no_slip = results["run configs 1"]["1_ekf_only"]["no_slip"]["drift_pct"]
+    rho = float(np.mean(made["run configs 4"][0].rho[10]))   # unrounded
+    gates.update({
+        "config 1: no-slip drift_pct < 20": no_slip < 20.0,
+        "config 4: rho nearer 0.215 than 0.21": abs(rho - 0.215) < 0.005,
+        "config 5: every window's cost drops":
+            results["run configs 5"]["5_fleet"]["all_converged"],
+        "config 6: both trackers": set(results["run configs 6"]) == {
+            "6_image_vilo_cv", "6_image_vilo_device"}})
+    results["config 4 rho_final (unrounded)"] = rho
+    if not all(gates.values()):
+        raise AssertionError(f"run configs gates: "
+                             f"{[g for g, ok in gates.items() if not ok]}")
+    return launches, results
+
+
 def profile_spans(label, fn, spans, total):
     """Run fn() once under torch.profiler; print host ms per span (summed
     over its calls), the device time of the kernels, and the top kernels."""
@@ -2086,7 +2377,40 @@ def main():
     args = parser.parse_args()
     dev, smi = environment()
     build()
-    numbers = check_kernels(dev)
+    children = {name: start_child(name) for name in CHILDREN}
+    try:
+        numbers = check_kernels(dev)
+        for name, proc in children.items():
+            release_child(name, proc)
+        launches = main_phases(args, dev, children)
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print("kernels: " + " ".join(
+        f"{name}={counts[name]} ({path})"
+        for name, _ in KERNELS for path, counts in launches.items()))
+    main_path = {"lane_cholesky_solve[f32]": "solve_window_batched",
+                 "lane_cholesky_solve[f64]": "long run loop",
+                 "lane_cholesky_solve[f64] n=382": "solve_window TFT",
+                 "cholesky_solve": "solve_window_batched"}
+    rows = []
+    for (name, dtype), meta in KERNELS.items():
+        rows.append(dict(
+            name=name, **meta, launches=launches[main_path[name]][name],
+            launches_by_path={p: c[name] for p, c in launches.items()},
+            **numbers[name]))
+    print(smi)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def main_phases(args, dev, children):
+    """Every phase after the kernels', then the children's (CHILDREN,
+    running meanwhile) collected. Returns the launches per path."""
     launches, batched_s, problem = batched_path(dev)
     option_launches, options = solver_options(problem)
     launches.update(option_launches)
@@ -2110,27 +2434,14 @@ def main():
     print("fleet: " + json.dumps(fleet_nums))
     launches["sfm check"], sfm = sfm_check(dev)
     print("sfm: " + json.dumps(sfm))
+    for name, proc in children.items():
+        child_launches, nums = finish_child(name, proc)
+        launches.update(child_launches)
+        print(f"{name}: " + json.dumps(nums))
     if args.profile:
         profile_runs(problem, batched_s, dev)
         profile_pose_graph(loop_pg, loop["optimize_check"]["card_ms"])
-    print("kernels: " + " ".join(
-        f"{name}={counts[name]} ({path})"
-        for name, _ in KERNELS for path, counts in launches.items()))
-    main_path = {"lane_cholesky_solve[f32]": "solve_window_batched",
-                 "lane_cholesky_solve[f64]": "bag replay CLI",
-                 "lane_cholesky_solve[f64] n=382": "solve_window TFT",
-                 "cholesky_solve": "solve_window_batched"}
-    rows = []
-    for (name, dtype), meta in KERNELS.items():
-        rows.append(dict(
-            name=name, **meta, launches=launches[main_path[name]][name],
-            launches_by_path={p: c[name] for p, c in launches.items()},
-            **numbers[name]))
-    print(smi)
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    return launches
 
 
 if __name__ == "__main__":

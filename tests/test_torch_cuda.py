@@ -9,10 +9,12 @@ and 384; the pose graph's Gauss-Newton queues without a wait and agrees with the
 CPU at 512 and 1024 nodes; the fleet solve reaches the lane kernel; a card
 replay runs the native sensor sync (equal to one on PySensorSync), its
 steps stay sync-free with the debug hooks off and a metrics logger on; the
-pooled calibration step under a one-process nccl group.
+pooled calibration step under a one-process nccl group; the evaluation
+scripts run on the card by default.
 (chip_smoke.py holds the kernels to their plain versions and the card's
-solve, replays, tracker and EKF to the CPU's.) Every test here but the last
-needs a CUDA device and skips without one.
+solve, replays, tracker and EKF to the CPU's.) Every test here but the
+OpenCV-free camera's and the evaluation scripts' needs a CUDA device and
+skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is missing (tests/conftest.py imports JAX; skip it there):
@@ -513,6 +515,29 @@ def test_pinhole_camera_without_opencv(monkeypatch):
     with pytest.raises(ImportError, match="OpenCV"):
         FisheyeCamera(460.0, 460.0, 320.0, 240.0).undistort_normalize(
             np.ones((1, 2)))
+
+
+def test_evals_run_on_the_card_unless_told(tmp_path):
+    """The evaluation scripts take the card by default: where there is
+    none, long_run, run_configs and loop_replay raise without --device cpu
+    (no fallback); on the card, long_run's estimator runs there. Runs on
+    the CPU too."""
+    from cerberus_tpu_torch.evals import long_run, loop_replay, run_configs
+
+    if torch.cuda.is_available():
+        res = long_run.main(["--duration", "0.4", "--no-vision"])
+        assert res["platform"] == "cuda" and res["dtype"] == "float64"
+        return
+    records = tmp_path / "records.pkl"
+    records.write_bytes(b"")
+    for run in (lambda: long_run.main(["--duration", "0.4"]),
+                lambda: long_run.main(["--loop", "--images", "--tracker",
+                                       "device", "--duration", "0.4"]),
+                lambda: run_configs.main(["--configs", "2",
+                                          "--duration", "0.4"]),
+                lambda: loop_replay.main([str(records), "--duration", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run()
 
 
 def _replay_card(cuda, use_native, spy=None, metrics=None):
