@@ -68,11 +68,14 @@ def write_dataset(out_dir: str, t, acc, gyr, phi, dphi, contact,
     rows = np.column_stack([np.asarray(t)[:, None], acc, gyr, phi, dphi,
                             contact])
     assert rows.shape[1] == IMU_LEG_COLS, rows.shape
+    # the t column at 1e-9 s, as cam.csv's: "%.9g" would keep 9 digits of
+    # a Unix-epoch stamp (~1.6e9 s), i.e. 10 s steps
     np.savetxt(os.path.join(out_dir, "imu_leg.csv"), rows, delimiter=",",
-               fmt="%.9g")
+               fmt=["%.9f"] + ["%.9g"] * (rows.shape[1] - 1))
     if mocap is not None:
+        mocap = np.asarray(mocap)
         np.savetxt(os.path.join(out_dir, "mocap.csv"), mocap, delimiter=",",
-                   fmt="%.9g")
+                   fmt=["%.9f"] + ["%.9g"] * (mocap.shape[1] - 1))
     if cam_t is not None:
         with open(os.path.join(out_dir, "cam.csv"), "w", newline="") as f:
             w = csv.writer(f)

@@ -114,11 +114,28 @@ Phases, each printed with its elapsed seconds:
      replay frame and one pose-graph optimize under torch.profiler, host
      time split by the code's spans and the device time of their kernels.
 
-Phases 13 and 14 are host-bound with the card idle most of the time, and
-each takes minutes: each runs in a child process (CHILDREN) started after
-the build, which makes no launch until the kernels phase has ended (the
-long run prerenders meanwhile), beside phases 4-12; their output is
-printed when they are collected, after phase 12.
+ 13b. robustness, in a process of its own: `python -m
+     cerberus_tpu_torch.evals.robustness --duration 3 --cases C` in-process
+     for each of the battery's 12 cases (the matched baseline, noise
+     densities x0.25 / x4, td mis-set +/-20 ms and estimated, extrinsic
+     rotation errors 1 / 3 deg, 2 x 1 s IMU hangs, contact-flag corruption,
+     150 landmarks, a fast untuned gait, foot slip x3; the default f64
+     EstimatorConfig); 13c. estimator branches, in another: `--cases none
+     --branches B` for stereo -> mono mid-run, IMU off and on again (a
+     restart), vision only, the PnP recovery from an accelerometer fault
+     and a reboot from a gyro spike (failure_detection, `_rebase_world`),
+     3 s each. Launches counted per call; gates: the f64 kernel once per
+     LM iteration of every solve, reboots as the JAX package's, drift and
+     ATE at most 2x its (in a run with a step on a placeholder interval:
+     that step where the JAX package's came, and the frames before it),
+     td nearer 0 and within 2 ms of its, mono in mono, stale IMU intervals
+     as its;
+
+Phases 13, 13b, 13c and 14 are host-bound with the card idle most of the
+time, and each takes minutes: each runs in a child process (CHILDREN)
+started after the build, which makes no launch until the kernels phase has
+ended (the long run prerenders meanwhile), beside phases 4-12; their output
+is printed when they are collected, after phase 12.
 
 Ends with a line of each kernel's launches per path, the card's name and
 power limit, a JSON line of the kernels' numbers, then the result line
@@ -271,6 +288,83 @@ RUN_CONFIGS_S = "2"
 LONG_RUN_FEATURES = {"long run go1": ["--robot", "go1", "--duration", "3"],
                      "long run no-leg": ["--no-leg", "--duration", "3"]}
 FLEET_CONFIG_ITERS = 8   # LM iterations of run_configs' config 5
+# `robustness` and `estimator branches`: the port's `evals/robustness.py`
+# in-process, one run a call, its 12 cases and its 5 branch runs at 3 s
+# each (the JAX battery's 60 s cut for the time limit; 3 s is the shortest
+# run on which corrupt_contacts can place a burst, and both IMU dropout
+# windows begin after initialization), in two processes of their own, to
+# leave the host's 8 cores to the long run (its frame took 2,080 ms beside
+# three such processes in one call, 1,787 ms beside two in another)
+ROBUSTNESS_S = "3.0"
+ROBUSTNESS_CHILDREN = {
+    "robustness": ("baseline_matched", "noise_x0.25", "noise_x4",
+                   "td_init_+20ms", "td_init_-20ms", "extrinsic_rot_1deg",
+                   "extrinsic_rot_3deg", "imu_dropout_2x1s",
+                   "contact_corruption", "low_texture_150lm",
+                   "fast_untuned_gait", "slip_x3"),
+    "estimator branches": ("mono_swap", "imu_off_on", "vision_only",
+                           "pnp_recovery", "reboot")}
+TD_GATE_MS = 2.0   # final td within this of the JAX package's
+# the JAX package's numbers on the same runs (`python3
+# tools/jax_robustness.py --duration 3`: JAX on the CPU, f64, the default
+# EstimatorConfig; unrounded drift % and ATE, reboots, final td in ms,
+# stale IMU intervals, the sample time of the first adopted step on a
+# placeholder interval and the scores of the frames published before it);
+# the gates hold drift and ATE to 2x these
+JAX_ROBUSTNESS = {
+    'baseline_matched': dict(drift_pct=0.33141602318768965,
+        ate_rmse=0.002345470427763148, reboots=0, stale_imu_intervals=0,
+        placeholder_at=None),
+    'noise_x0.25': dict(drift_pct=0.4092960947676626,
+        ate_rmse=0.002953856522133233, reboots=0, stale_imu_intervals=0,
+        placeholder_at=None),
+    'noise_x4': dict(drift_pct=0.10456158998766452,
+        ate_rmse=0.001632927212493455, reboots=0, stale_imu_intervals=0,
+        placeholder_at=None),
+    'td_init_+20ms': dict(drift_pct=9.5442636887108,
+        ate_rmse=0.08764556294144644, reboots=0,
+        td_final_ms=15.589214637363748, stale_imu_intervals=0,
+        placeholder_at=1.206, before_placeholder=dict(frames=8,
+        drift_pct=25.56978497129529, ate_rmse=0.029862846696006178)),
+    'td_init_-20ms': dict(drift_pct=3.468928960064655,
+        ate_rmse=0.01994795581712572, reboots=0,
+        td_final_ms=-9.561004513277323, stale_imu_intervals=0,
+        placeholder_at=None),
+    'extrinsic_rot_1deg': dict(drift_pct=0.317057611322108,
+        ate_rmse=0.0026353600232570736, reboots=0, stale_imu_intervals=0,
+        placeholder_at=None),
+    'extrinsic_rot_3deg': dict(drift_pct=0.38342447562758575,
+        ate_rmse=0.004225481944526546, reboots=0, stale_imu_intervals=0,
+        placeholder_at=None),
+    'imu_dropout_2x1s': dict(drift_pct=61.28393580546801,
+        ate_rmse=0.547489970109644, reboots=0, stale_imu_intervals=28,
+        placeholder_at=0.99, before_placeholder=dict(frames=5,
+        drift_pct=0.9913933078816961, ate_rmse=0.0008448972262636574)),
+    'contact_corruption': dict(drift_pct=23.646079529766414,
+        ate_rmse=0.07872019584854746, reboots=0, stale_imu_intervals=0,
+        placeholder_at=None),
+    'low_texture_150lm': dict(drift_pct=0.6135288659746181,
+        ate_rmse=0.004574841088153949, reboots=0, stale_imu_intervals=0,
+        placeholder_at=None),
+    'fast_untuned_gait': dict(drift_pct=0.5103748201033846,
+        ate_rmse=0.009402337660653536, reboots=0, stale_imu_intervals=0,
+        placeholder_at=None),
+    'slip_x3': dict(drift_pct=1.2191227787267933, ate_rmse=0.00830120796066368,
+        reboots=0, stale_imu_intervals=0, placeholder_at=None),
+    'mono_swap': dict(drift_pct=0.5216150205450912,
+        ate_rmse=0.0037525557325563488, reboots=0, stale_imu_intervals=0,
+        placeholder_at=None),
+    'imu_off_on': dict(drift_pct=67.3096969433514, ate_rmse=0.5296875750892349,
+        reboots=1, stale_imu_intervals=0, placeholder_at=None),
+    'vision_only': dict(drift_pct=1.2644530752274539,
+        ate_rmse=0.008431069423626982, reboots=0, stale_imu_intervals=0,
+        placeholder_at=None),
+    'pnp_recovery': dict(drift_pct=4.033810778460326,
+        ate_rmse=0.027918993236279385, reboots=0, stale_imu_intervals=0,
+        placeholder_at=None),
+    'reboot': dict(drift_pct=23.08712558069847, ate_rmse=0.16856662300746816,
+        reboots=1, stale_imu_intervals=0, placeholder_at=None),
+}
 
 # kernel rows: (name, dtype) -> what the JSON line says of it
 KERNELS = {
@@ -559,7 +653,7 @@ def environment():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phase("environment", t0, device=repr(torch.cuda.get_device_name(0)),
-          count=torch.cuda.device_count())
+          count=torch.cuda.device_count(), cpu_count=os.cpu_count())
     return dev, smi
 
 
@@ -2100,10 +2194,24 @@ def run_configs_child():
     print(json.dumps({"launches": launches, "numbers": nums}), flush=True)
 
 
+def robustness_child(name):
+    """ROBUSTNESS_CHILDREN[name] (robustness) in a process of its own
+    (start_child), once the parent releases it: its phase lines, then its
+    launches per run and numbers as one JSON line."""
+    sys.stdin.readline()
+    dev = _child_setup()
+    torch.set_num_threads(1)   # host-bound Python; the card does the work
+    launches, nums = robustness(dev, name)
+    print(json.dumps({"launches": launches, "numbers": nums}), flush=True)
+
+
 # phases that run in processes of their own beside the parent's, each
-# host-bound with the card idle most of the time: name -> its function
-CHILDREN = {"long run loop": "long_run_loop_child",
-            "run configs": "run_configs_child"}
+# host-bound with the card idle most of the time: name -> the call that
+# runs it
+CHILDREN = {"long run loop": "long_run_loop_child()",
+            "run configs": "run_configs_child()",
+            **{name: f"robustness_child({name!r})"
+               for name in ROBUSTNESS_CHILDREN}}
 
 
 def child_log(name):
@@ -2119,7 +2227,7 @@ def start_child(name):
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
             [sys.executable, "-c",
-             f"import chip_smoke; chip_smoke.{CHILDREN[name]}()"],
+             f"import chip_smoke; chip_smoke.{CHILDREN[name]}"],
             cwd=Path(__file__).resolve().parent,
             env=dict(os.environ, OMP_NUM_THREADS="2"),
             stdin=subprocess.PIPE, stdout=log, stderr=subprocess.STDOUT)
@@ -2219,6 +2327,92 @@ def run_configs(dev):
     if not all(gates.values()):
         raise AssertionError(f"run configs gates: "
                              f"{[g for g, ok in gates.items() if not ok]}")
+    return launches, results
+
+
+def robustness(dev, name):
+    """Runs ROBUSTNESS_CHILDREN[name] of the port's robustness battery on
+    the card, in-process: `python -m cerberus_tpu_torch.evals.robustness
+    --duration ROBUSTNESS_S --cases C` for each case C (the default f64
+    EstimatorConfig) or `--cases none --branches B` for each branch run B,
+    one call each with its launches counted. Gates, per run: no error and
+    solves > 0; the f64 kernel once per LM iteration (ITERS a solve, across
+    restarts, INIT_ITERS an initialization solve) and nothing else;
+    reboots equal to the JAX package's (JAX_ROBUSTNESS), at least one on
+    `reboot`; drift % and ATE at most 2x the JAX package's; the td cases'
+    final td nearer 0 than their +/-20 ms start and within TD_GATE_MS of
+    the JAX package's; `mono_swap` ending NON_LINEAR in mono; the stale
+    IMU intervals of `imu_dropout_2x1s` > 0 and equal to the JAX
+    package's. In a run that adopts a step whose newest interval is a
+    placeholder (robustness.watch: a stale IMU, or an interval dropped when
+    td grew), what follows is roundoff in either package: there the first
+    such step must come where the JAX package's came, and the drift and ATE
+    gates hold the frames published before it. Returns (launches per run,
+    numbers)."""
+    from cerberus_tpu_torch.evals import robustness as rb
+
+    branch = name == "estimator branches"
+    launches, results, gates = {}, {}, {}
+    for run in ROBUSTNESS_CHILDREN[name]:
+        label = f"{name}: {run}"
+        argv = (["--cases", "none", "--branches", run] if branch
+                else ["--cases", run])
+        t0 = time.perf_counter()
+        reset_counts()
+        res = rb.main(argv + ["--duration", ROBUSTNESS_S,
+                              "--device", dev.type])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        entry, n = res[run], res["_meta"]["estimator"][run]
+        jax = JAX_ROBUSTNESS[run]
+        want = only({"lane_cholesky_solve[f64]": ITERS * n["solves_all"]
+                     + E.INIT_ITERS * n["init_solves"]})
+        nums = dict(entry, **n, frames_per_s=n["frames"] / entry["wall_s"])
+        phase(label, t0, launches=counts, result=json.dumps(nums))
+        g = {"no error, solves > 0": "error" not in entry
+             and entry["solves"] > 0,
+             f"launches {counts} == {want}": counts == want,
+             f"reboots == JAX's {jax['reboots']}":
+                 entry["reboots"] == jax["reboots"]}
+        if "error" not in entry and jax["placeholder_at"] is None:
+            g["no placeholder step, as JAX"] = n["placeholder_at"] is None
+            for k in ("drift_pct", "ate_rmse"):
+                g[f"{k} <= 2 x JAX's {jax[k]:.6g}"] = entry[k] <= 2 * jax[k]
+        elif "error" not in entry:
+            # past its first step on a placeholder interval the answer is
+            # roundoff in either package: the run is held up to there
+            jb, b = jax["before_placeholder"], n.get("before_placeholder")
+            g[f"first placeholder step adopted at JAX's "
+              f"{jax['placeholder_at']:.4f} s"] = \
+                n["placeholder_at"] is not None and \
+                abs(n["placeholder_at"] - jax["placeholder_at"]) < 1e-9
+            if b is not None:
+                g[f"{b['frames']} frames before it, as JAX's"] = \
+                    b["frames"] == jb["frames"]
+                for k in ("drift_pct", "ate_rmse"):
+                    g[f"{k} before it <= 2 x JAX's {jb[k]:.6g}"] = \
+                        b[k] <= 2 * jb[k]
+        if "td_final_ms" in jax:
+            td, td0 = entry.get("td_final_ms", np.inf), \
+                (20.0 if "+" in run else -20.0)
+            g["|td_final| < |td_init|"] = abs(td) < abs(td0)
+            g[f"td_final within {TD_GATE_MS} ms of JAX's "
+              f"{jax['td_final_ms']:.4f}"] = \
+                abs(td - jax["td_final_ms"]) <= TD_GATE_MS
+        if run == "reboot":
+            g["reboots >= 1"] = entry["reboots"] >= 1
+        if run == "mono_swap":
+            g["NON_LINEAR, mono"] = entry.get("solver_flag") == \
+                "NON_LINEAR" and entry.get("stereo") is False
+        if run == "imu_dropout_2x1s":
+            g[f"stale IMU intervals {n['stale_imu_intervals']} > 0, == "
+              f"JAX's {jax['stale_imu_intervals']}"] = \
+                0 < n["stale_imu_intervals"] == jax["stale_imu_intervals"]
+        gates.update({f"{label}: {k}": ok for k, ok in g.items()})
+        launches[label], results[label] = counts, nums
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"{name} gates: {failed}")
     return launches, results
 
 
@@ -2375,6 +2569,7 @@ def main():
                              "streaming step, one image replay frame and "
                              "one pose-graph optimize")
     args = parser.parse_args()
+    t_script = time.perf_counter()
     dev, smi = environment()
     build()
     children = {name: start_child(name) for name in CHILDREN}
@@ -2388,6 +2583,7 @@ def main():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    phase("script", t_script)
     print("kernels: " + " ".join(
         f"{name}={counts[name]} ({path})"
         for name, _ in KERNELS for path, counts in launches.items()))

@@ -10,7 +10,9 @@ CPU at 512 and 1024 nodes; the fleet solve reaches the lane kernel; a card
 replay runs the native sensor sync (equal to one on PySensorSync), its
 steps stay sync-free with the debug hooks off and a metrics logger on; the
 pooled calibration step under a one-process nccl group; the evaluation
-scripts run on the card by default.
+scripts run on the card by default; a step with td free stays sync-free
+and launches the f64 kernel once per LM iteration; the robustness battery
+runs a case on the card at full width.
 (chip_smoke.py holds the kernels to their plain versions and the card's
 solve, replays, tracker and EKF to the CPU's.) Every test here but the
 OpenCV-free camera's and the evaluation scripts' needs a CUDA device and
@@ -275,6 +277,76 @@ def test_streaming_step_never_waits_for_the_device(cuda):
         torch.cuda.synchronize()
         assert torch.isfinite(out["st"].p).all()
         assert torch.isfinite(out["prior"][0]).all()
+
+
+def test_td_free_step_never_waits_for_the_device(cuda):
+    """A per-frame step with td free (estimate_td, td = -5 ms: it never
+    grows at a deferral, so no newest interval is a placeholder) under
+    CUDA's sync debug mode, its f64 kernel launched once per LM iteration
+    and no other kernel launched."""
+    import dataclasses
+
+    from cerberus_tpu_torch.config import EstimatorConfig
+    from cerberus_tpu_torch.data.replay import replay
+    from cerberus_tpu_torch.data.simulator import SimConfig, simulate
+    from cerberus_tpu_torch.estimator import estimator as E
+    from cerberus_tpu_torch.ops import factors as fac
+
+    rec = {}
+    step = E._streaming_step
+
+    def spy(*args, **kw):
+        if "call" not in rec and bool(args[5][fac.TD_OFF]):
+            rec["call"] = (args, kw)
+        return step(*args, **kw)
+
+    cfg = dataclasses.replace(EstimatorConfig(), max_features=32,
+                              max_num_iterations=2, td=-0.005,
+                              estimate_td=True)
+    est = E.Estimator(cfg, device=cuda)
+    E._streaming_step = spy
+    try:
+        replay(simulate(SimConfig(duration=1.6, speed=0.5, seed=43)),
+               est=est, max_frames=14)
+    finally:
+        E._streaming_step = step
+    args, kw = rec["call"]
+    assert bool(args[2][9])
+    step(*args, **kw)
+    torch.cuda.synchronize()
+    lc.LAUNCHES.clear()
+    cs.LAUNCHES = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert dict(lc.LAUNCHES) == {(torch.float64, 222): 2}
+    assert cs.LAUNCHES == 0
+    assert torch.isfinite(out["st"].p).all() and torch.isfinite(
+        out["st"].td).all()
+
+
+def test_robustness_battery_runs_on_the_card(cuda):
+    """`evals.robustness --cases baseline_matched --duration 3` on the
+    card (its default): full width, f64, the f64 kernel once per LM
+    iteration of every solve."""
+    from cerberus_tpu_torch.estimator.estimator import INIT_ITERS
+    from cerberus_tpu_torch.evals import robustness
+
+    lc.LAUNCHES.clear()
+    res = robustness.main(["--device", "cuda", "--cases", "baseline_matched",
+                           "--duration", "3"])
+    torch.cuda.synchronize()
+    entry = res["baseline_matched"]
+    n = res["_meta"]["estimator"]["baseline_matched"]
+    assert res["_meta"]["platform"] == "cuda"
+    assert "error" not in entry and entry["solves"] > 0
+    assert entry["reboots"] == 0 and n["placeholder_at"] is None
+    assert sum(k for (dtype, _), k in lc.LAUNCHES.items()
+               if dtype == torch.float64) == \
+        12 * n["solves_all"] + INIT_ITERS * n["init_solves"]
 
 
 def _frames(n, W=160, H=120):

@@ -134,6 +134,12 @@ NO_JAX_SCRIPT = textwrap.dedent("""
                            z, torch.tensor([False, True, True, True]),
                            z[0], z[0], params)
     assert float(pre.sum_dt) == 0.006
+    from cerberus_tpu_torch.evals import robustness
+    res = robustness.main(["--device", "cpu", "--cases", "td_init_+20ms",
+                           "--branches", "mono_swap", "--duration", "0.4"])
+    assert res["_meta"]["platform"] == "cpu"
+    assert set(res) == {"_meta", "td_init_+20ms", "mono_swap"}
+    assert not any("error" in v for k, v in res.items() if k != "_meta")
     assert not any(name == "jax" or name.startswith(("jax.", "jaxlib"))
                    or name.startswith("cerberus_tpu.")
                    for name, mod in sys.modules.items() if mod is not None)

@@ -6,25 +6,35 @@ Inputs: messages made from a numpy seed; a short simulated sequence
 on the reference A1 topics as tests/test_rosbag.py::_sim_to_bag packs it;
 a synthetic EuRoC tree as tests/test_rosbag.py::test_convert_euroc makes it.
 
-Tolerances: none. Bags are compared byte for byte (plain, recorder-style,
-bz2 chunks), each package's reader decodes the other's bag to equal
-messages, and the converters' datasets are equal file by file and array by
-array (the same NumPy code on the same bytes).
+Tolerances: none but the sample clock. Bags are compared byte for byte
+(plain, recorder-style, bz2 chunks), each package's reader decodes the
+other's bag to equal messages, and the converters' datasets are equal file
+by file and array by array (the same NumPy code on the same bytes) — but
+for the t column of imu_leg.csv and mocap.csv, which the port writes at
+1e-9 s ("%.9f", as cam.csv) where the JAX package keeps 9 significant
+digits ("%.9g"): the port's t is held to the source's stamps within 1e-9
+s, the rest of those files' parsed columns to JAX's exactly. A bag
+stamped at a Unix epoch (1.6e9 s) converts and replays.
 """
 
 import bz2
+import dataclasses
 import filecmp
 import os
 import struct
 
 import numpy as np
 import pytest
+import torch
 
 from cerberus_tpu.data import SimConfig, simulate
 from cerberus_tpu.data import log_adapter as jla
 from cerberus_tpu.data import rosbag as jbag
+from cerberus_tpu_torch.config import EstimatorConfig
 from cerberus_tpu_torch.data import log_adapter as tla
 from cerberus_tpu_torch.data import rosbag as tbag
+from cerberus_tpu_torch.data.replay import replay
+from cerberus_tpu_torch.estimator.estimator import Estimator
 
 TOPICS = {"/hardware_a1/imu": "sensor_msgs/Imu",
           "/hardware_a1/joint_foot": "sensor_msgs/JointState",
@@ -133,13 +143,14 @@ def test_bag_bytes_equal_and_readers_agree(tmp_path, style):
           f"bytes equal; {len(ref)} messages decoded equal both ways")
 
 
-def _sim_to_bag(sim, path, images=0):
-    """tests/test_rosbag.py::_sim_to_bag, with the port's BagWriter."""
+def _sim_to_bag(sim, path, images=0, epoch=1000.0):
+    """tests/test_rosbag.py::_sim_to_bag, with the port's BagWriter; the
+    stamps are the simulator's clock plus `epoch` seconds."""
     topics = tla.A1_TOPICS
     with tbag.BagWriter(str(path)) as w:
         n = len(sim["t"])
         for k in range(n):
-            t = float(sim["t"][k]) + 1000.0
+            t = float(sim["t"][k]) + epoch
             w.write(topics["imu"], tbag.ImuMsg(stamp=t, acc=sim["acc"][k],
                                                gyr=sim["gyr"][k]))
             pos = np.concatenate([sim["phi"][k], np.zeros(4)])
@@ -154,7 +165,7 @@ def _sim_to_bag(sim, path, images=0):
                     q=np.array([q[1], q[2], q[3], q[0]])))
         rng = np.random.default_rng(0)
         for i in range(images):
-            t = float(sim["t"][min(i * 33, n - 1)]) + 1000.0
+            t = float(sim["t"][min(i * 33, n - 1)]) + epoch
             im = rng.integers(0, 255, size=(24, 32)).astype(np.uint8)
             w.write(topics["image0"], tbag.ImageMsg(stamp=t, data=im))
             w.write(topics["image1"], tbag.ImageMsg(stamp=t + 0.001, data=im))
@@ -165,8 +176,22 @@ def sim():
     return simulate(SimConfig(duration=2.0, speed=0.5, path="arc", seed=5))
 
 
-def _assert_datasets_equal(tds, jds, t_dir, j_dir):
+# the files whose t column the port writes "%.9f" and the JAX package
+# "%.9g" (9 digits: 10 s steps at a Unix-epoch stamp)
+CLOCK_FILES = ("imu_leg.csv", "mocap.csv")
+
+
+def _assert_datasets_equal(tds, jds, t_dir, j_dir, stamps):
+    """The port's dataset against JAX's: every file byte-equal but
+    CLOCK_FILES, whose parsed columns are equal but for t, which is held to
+    the source's stamps (`stamps`: the expected t and mocap_t) within 1e-9
+    s; likewise every loaded array, those made from the sample clock (t,
+    mocap_t, the resampled ground truth p, cam_idx) held to the stamps or
+    to the loader's own formula on them."""
     assert tds.keys() == jds.keys()
+    for k in ("t", "mocap_t"):
+        np.testing.assert_allclose(tds[k], stamps[k], rtol=0, atol=1e-9,
+                                   err_msg=k)
     for k in tds:
         if k in ("meta",):
             assert tds[k] == jds[k]
@@ -175,12 +200,29 @@ def _assert_datasets_equal(tds, jds, t_dir, j_dir):
                     for pp in tds[k]] == [
                 tuple(os.path.relpath(p, j_dir) if p else "" for p in pp)
                 for pp in jds[k]]
-        else:
+        elif k == "p":
+            np.testing.assert_allclose(tds[k], np.column_stack([
+                np.interp(stamps["t"], stamps["mocap_t"],
+                          tds["mocap_p"][:, i]) for i in range(3)]),
+                rtol=0, atol=1e-9, err_msg=k)
+        elif k == "cam_idx":
+            np.testing.assert_array_equal(tds[k], np.clip(np.searchsorted(
+                tds["t"], tds["cam_t"]), 0, len(tds["t"]) - 1), err_msg=k)
+        elif k not in ("t", "mocap_t"):
             np.testing.assert_array_equal(tds[k], jds[k], err_msg=k)
     for name in os.listdir(j_dir):
-        if os.path.isfile(os.path.join(j_dir, name)):
-            assert filecmp.cmp(os.path.join(t_dir, name),
-                               os.path.join(j_dir, name), shallow=False), name
+        tf, jf = os.path.join(t_dir, name), os.path.join(j_dir, name)
+        if name in CLOCK_FILES:
+            got = np.loadtxt(tf, delimiter=",", ndmin=2)
+            want = np.loadtxt(jf, delimiter=",", ndmin=2)
+            np.testing.assert_array_equal(got[:, 1:], want[:, 1:],
+                                          err_msg=name)
+            np.testing.assert_allclose(
+                got[:, 0], stamps["t" if name == "imu_leg.csv"
+                                  else "mocap_t"], rtol=0, atol=1e-9,
+                err_msg=name)
+        elif os.path.isfile(jf):
+            assert filecmp.cmp(tf, jf, shallow=False), name
 
 
 @pytest.mark.parametrize("robot", ["a1", "go1"])
@@ -193,8 +235,9 @@ def test_convert_rosbag_matches_jax(tmp_path, sim, robot):
     kw = dict(topics=tla.A1_TOPICS, robot=robot) if robot == "go1" else {}
     tds = tla.convert_rosbag(str(bag), str(tmp_path / "port"), **kw)
     jds = jla.convert_rosbag(str(bag), str(tmp_path / "jax"), **kw)
+    stamps = dict(t=sim["t"] + 1000.0, mocap_t=sim["t"][::50] + 1000.0)
     _assert_datasets_equal(tds, jds, str(tmp_path / "port"),
-                           str(tmp_path / "jax"))
+                           str(tmp_path / "jax"), stamps)
     key = "foot_forces" if robot == "go1" else "contacts"
     src = "foot_forces" if robot == "go1" else "contacts"
     n = len(tds["t"])
@@ -233,10 +276,58 @@ def test_convert_euroc_matches_jax(tmp_path):
     jds = jla.convert_euroc(str(root), str(tmp_path / "jax"))
     assert tds["image_paths"] == jds["image_paths"]   # absolute, in place
     tds.pop("image_paths"), jds.pop("image_paths")
+    t0 = t_ns[0].astype(float) * 1e-9
+    stamps = dict(t=t_ns.astype(float) * 1e-9 - t0,
+                  mocap_t=t_ns[::5].astype(float) * 1e-9 - t0)
     _assert_datasets_equal(tds, jds, str(tmp_path / "port"),
-                           str(tmp_path / "jax"))
+                           str(tmp_path / "jax"), stamps)
     assert len(tds["t"]) == 400 and len(tds["cam_t"]) == 40
     print("PORT_DIFF convert_euroc 400 samples, 40 images: equal (exact)")
+
+
+def test_unix_epoch_bag_converts_and_replays(tmp_path, sim):
+    """A bag stamped at a Unix epoch (1.6e9 s, where a float64 second has a
+    spacing of 2.4e-7 s): the converted dataset's sample and mocap clocks
+    keep the stamps, and its replay (proprioception only, max_features =
+    48, max_num_iterations = 4, 16 frames) goes as the same bag's stamped at
+    1000 s: the same frames published and solves. The replay puts the
+    window on a 15 Hz keyframe clock that it makes with np.arange from the
+    first sample, whose rounding at 1.6e9 s can land a frame one 2 ms
+    sample earlier: frame times are held within one sample, positions
+    within 2e-3 m (1 mm a sample at 0.5 m/s, twice) and the ATE within
+    1e-3 m. With the t column written at 9 significant digits the samples
+    share 10 s steps and nothing replays."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    out = {}
+    try:
+        for name, epoch in (("epoch", 1.6e9), ("1000s", 1000.0)):
+            bag = tmp_path / f"{name}.bag"
+            _sim_to_bag(sim, bag, epoch=epoch)
+            ds = tla.convert_rosbag(str(bag), str(tmp_path / name))
+            stamps = sim["t"] + epoch
+            np.testing.assert_allclose(ds["t"], stamps, rtol=0, atol=5e-7)
+            np.testing.assert_allclose(ds["mocap_t"], stamps[::50], rtol=0,
+                                       atol=5e-7)
+            est = Estimator(dataclasses.replace(
+                EstimatorConfig(), max_features=48, max_num_iterations=4),
+                device="cpu")
+            out[name] = replay(ds, est=est, max_frames=16)
+            out[name]["est_t"] = np.asarray(out[name]["est_t"]) - epoch
+    finally:
+        torch.set_num_threads(n)
+    got, want = out["epoch"], out["1000s"]
+    assert len(got["est_t"]) == len(want["est_t"]) >= 5
+    assert got["estimator"].stats["solves"] == \
+        want["estimator"].stats["solves"] > 0
+    np.testing.assert_allclose(got["est_t"], want["est_t"], rtol=0,
+                               atol=2e-3 + 5e-7)
+    diff = np.abs(np.asarray(got["est_p"]) - np.asarray(want["est_p"]))
+    print(f"PORT_DIFF unix-epoch bag replay vs 1000 s bag "
+          f"({len(got['est_t'])} frames) est_p max_abs={diff.max():.3e}, "
+          f"ate_rmse {got['ate_rmse']:.6f} vs {want['ate_rmse']:.6f} m")
+    assert diff.max() < 2e-3
+    assert abs(got["ate_rmse"] - want["ate_rmse"]) < 1e-3
 
 
 def test_write_png_gray_decodes(tmp_path):
