@@ -11,7 +11,8 @@ does not take raises.
 `tile_plan` is the kernels' layout (tile width, padded n, resident or
 streamed tiles, shared memory), shared with `ops/cholesky_solve.py`.
 
-`LAUNCHES` counts the kernel's launches by (dtype, n), so a run can show
+`LAUNCHES` counts the kernel's launches by (dtype, n), and
+`LAUNCHES_BY_SHAPE` the same launches by (dtype, B, n), so a run can show
 that its solves went through the kernel at the shapes it expects.
 
 `lane_cholesky_solve_ref` is the library route (`torch.linalg`), which the
@@ -31,6 +32,7 @@ import torch
 from cerberus_tpu_torch import _build
 
 LAUNCHES = collections.Counter()   # (dtype, n) -> launches
+LAUNCHES_BY_SHAPE = collections.Counter()   # (dtype, B, n) -> launches
 
 SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on sm_90
 
@@ -143,6 +145,7 @@ def lane_cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise RuntimeError("lane_cholesky_solve launch failed: "
                            + lib.lane_cholesky_error_string(err).decode())
     LAUNCHES[(A.dtype, n)] += 1
+    LAUNCHES_BY_SHAPE[(A.dtype, Bn, n)] += 1
     return x
 
 

@@ -18,9 +18,10 @@ Phases, each printed with its elapsed seconds:
      at its paths' shapes, timed with CUDA events beside its plain version,
      one library call computing the same function, and the least time the
      card could take (cuda_ms says how):
-       - lane_cholesky_solve f32 (the batched solve's and solve_window's)
-         and f64 (the streaming estimator's; n = 382, the solver's
-         full-system paths);
+       - lane_cholesky_solve f32 (the batched solve's and solve_window's;
+         B = 512 and 1,024, the measurement drivers' sweep; n = 382 at
+         B = 128, profile_solver's full system) and f64 (the streaming
+         estimator's; n = 382, the solver's full-system paths);
        - cholesky_solve, f32 (on no path of the port, as its TPU original);
   4. batched path: the batched full-width window solve — 128 windows of the
      10 s simulated sequence (11 frames, F = 160, 222-dim reduced system),
@@ -92,6 +93,18 @@ Phases, each printed with its elapsed seconds:
  12. sfm check: the initial SfM and alignment functions card vs CPU at the
      estimator's window (11 frames, F = 160, 128 hypotheses) and
      tests/test_initial_sfm.py's gates on the card;
+ 12b. measurement drivers, while the children run: the port's
+     `evals/profile_inloop.py` (the full, no_chol and asm_once loops at
+     B = 128, the production solve at B = 128, 512 and 1,024),
+     `profile_batched.py`, `profile_solver.py` (B = SOLVER_B),
+     `profile_streaming.py`, `bench_klt.py` (16 streams) and
+     `multichip_scaling.py --devices 1` through their `main` with
+     `--device cuda`, cut to DRIVER_REPS reps; every result key present,
+     every measured time finite and > 0, dense1 a number, the f32 kernel's
+     launches per timed program exact (12 a solve, 1 a damped solve, it a
+     solve of it iterations, none in no_chol, the stages and the tracker);
+     profile_inloop's full variant on 2 windows and bench_klt's tracks of
+     2 streams against the CPU;
  13. run configs, in a process of its own (below): `python -m
      cerberus_tpu_torch.evals.run_configs --configs C --duration 2`
      in-process for C = 1..6 (the legged EKF alone; IMU + leg; full VILO;
@@ -134,8 +147,8 @@ Phases, each printed with its elapsed seconds:
 Phases 13, 13b, 13c and 14 are host-bound with the card idle most of the
 time, and each takes minutes: each runs in a child process (CHILDREN)
 started after the build, which makes no launch until the kernels phase has
-ended (the long run prerenders meanwhile), beside phases 4-12; their output
-is printed when they are collected, after phase 12.
+ended (the long run prerenders meanwhile), beside phases 4-12b; their
+output is printed when they are collected, after phase 12b.
 
 Ends with a line of each kernel's launches per path, the card's name and
 power limit, a JSON line of the kernels' numbers, then the result line
@@ -190,6 +203,10 @@ from cerberus_tpu_torch.ops.solver import (SolveOptions, solve_window,  # noqa: 
 from cerberus_tpu_torch.data.replay import score  # noqa: E402
 from cerberus_tpu_torch.estimator import initial_alignment as ialign  # noqa: E402
 from cerberus_tpu_torch.estimator import initial_sfm as isfm  # noqa: E402
+from cerberus_tpu_torch.evals import (bench_klt, measure,  # noqa: E402
+                                      multichip_scaling, profile_batched,
+                                      profile_inloop, profile_solver,
+                                      profile_streaming)
 from cerberus_tpu_torch.loop.closer import LoopCloser, _yaw_of_quat  # noqa: E402
 from cerberus_tpu_torch.loop.posegraph import (PoseGraph,  # noqa: E402
                                                optimize_pose_graph)
@@ -213,10 +230,13 @@ ITERS = 12           # LM iterations (reference max_num_iterations)
 CHECK_WINDOWS = 8    # windows cross-checked against the CPU
 TOL = 2e-3           # f32 kernels vs plain, max |dx| / max |x|
 TOL_F64 = 1e-10      # f64 kernel vs plain, max |dx| / max |x|
-LANE_N = {torch.float32: (1, 16, 31, 33, 37, 222, 238, 240, 241, 321, 384),
+LANE_N = {torch.float32: (1, 16, 31, 33, 37, 222, 238, 240, 241, 321, 382,
+                          384),
           torch.float64: (1, 16, 31, 33, 37, 222, 224, 225, 238, 239, 382,
                           384)}
 LANE_B = (1, 2, 128, 130)
+# (B, n) also checked: the measurement drivers' sweep at B = 512 and 1,024
+LANE_WIDE = {torch.float32: ((512, 222), (1024, 222)), torch.float64: ()}
 TIMED_CALLS = 50     # kernel or library calls between one event pair
 STREAM_FRAMES = 20   # camera frames per streaming sequence
 CHECK_FRAMES = 14    # frames of sequence A cross-checked against the CPU
@@ -382,7 +402,20 @@ KERNELS = {
     ("cholesky_solve", torch.float32): dict(
         route="cuda", source="cerberus_tpu_torch/csrc/cholesky_solve.cu",
         replaces="cerberus_tpu/ops/pallas_kernels.py:53"),
+    # the f32 kernel's launches at the measurement drivers' shapes (subsets
+    # of the f32 row): the sweep's B = 512 and 1024 at n = 222, and n = 382
+    # (any B), profile_solver's full (222 + F)-dim system
+    **{(name, torch.float32): dict(
+        route="cuda", source="cerberus_tpu_torch/csrc/lane_cholesky.cu",
+        replaces="cerberus_tpu/ops/lane_cholesky.py:45")
+       for name in ("lane_cholesky_solve[f32] B=512",
+                    "lane_cholesky_solve[f32] B=1024",
+                    "lane_cholesky_solve[f32] n=382")},
 }
+# the shapes those rows are timed at (kernels phase)
+F32_PATH_SHAPES = {"lane_cholesky_solve[f32] B=512": (512, 222),
+                   "lane_cholesky_solve[f32] B=1024": (1024, 222),
+                   "lane_cholesky_solve[f32] n=382": (BATCH, 382)}
 
 
 class StreetStream:
@@ -484,11 +517,10 @@ def spd(seed, B, n, device, dtype=torch.float32):
     """SPD systems as tests/test_lane_cholesky.py makes them."""
     rng = np.random.default_rng(seed)
     J = rng.normal(size=(B, n + 5, n))
-    A = np.swapaxes(J, 1, 2) @ J + 0.5 * np.eye(n)      # J^T J
     b = rng.normal(size=(B, n))
     if dtype == torch.float32:     # made in f32, as that test makes them
-        J32 = J.astype(np.float32)
-        A = np.swapaxes(J32, 1, 2) @ J32 + 0.5 * np.eye(n, dtype=np.float32)
+        J = J.astype(np.float32)
+    A = np.swapaxes(J, 1, 2) @ J + 0.5 * np.eye(n, dtype=J.dtype)  # J^T J
     return (torch.as_tensor(A, dtype=dtype, device=device),
             torch.as_tensor(b, dtype=dtype, device=device))
 
@@ -598,6 +630,7 @@ def bound(bytes_moved, flops, flop_rate):
 
 def reset_counts():
     lc.LAUNCHES.clear()
+    lc.LAUNCHES_BY_SHAPE.clear()
     cs.LAUNCHES = 0
 
 
@@ -606,10 +639,14 @@ def read_counts():
     by_dtype = Counter()
     for (dtype, _), k in lc.LAUNCHES.items():
         by_dtype[dtype] += k
+    f32 = lambda B, n: lc.LAUNCHES_BY_SHAPE[(torch.float32, B, n)]
     return {"lane_cholesky_solve[f32]": by_dtype[torch.float32],
             "lane_cholesky_solve[f64]": by_dtype[torch.float64],
             "lane_cholesky_solve[f64] n=382": lc.LAUNCHES[(torch.float64, 382)],
-            "cholesky_solve": cs.LAUNCHES}
+            "cholesky_solve": cs.LAUNCHES,
+            "lane_cholesky_solve[f32] B=512": f32(512, 222),
+            "lane_cholesky_solve[f32] B=1024": f32(1024, 222),
+            "lane_cholesky_solve[f32] n=382": lc.LAUNCHES[(torch.float32, 382)]}
 
 
 def only(want):
@@ -759,20 +796,20 @@ def cholesky_solve_numbers(dev, B, n, pad=0, time_it=True):
 
 def check_lane(dev, dtype, tol):
     """lane_cholesky_solve against its plain version at every n of
-    LANE_N[dtype] and B of LANE_B, then on a batch whose middle system is
-    not SPD: its x must hold NaN, as the plain version's does, and the
-    others must agree as before."""
+    LANE_N[dtype] and B of LANE_B and at LANE_WIDE[dtype], then on a batch
+    whose middle system is not SPD: its x must hold NaN, as the plain
+    version's does, and the others must agree as before."""
     label = "f32" if dtype == torch.float32 else "f64"
     worst = 0.0
-    for n in LANE_N[dtype]:
-        for B in LANE_B:
-            A, b = spd(1000 * n + B, B, n, dev, dtype)
-            err = rel_err(lc.lane_cholesky_solve(A, b),
-                          lc.lane_cholesky_solve_plain(A, b))
-            if not err < tol:
-                raise AssertionError(f"lane_cholesky_solve {label} n={n} "
-                                     f"B={B}: relative error {err} >= {tol}")
-            worst = max(worst, err)
+    shapes = [(B, n) for n in LANE_N[dtype] for B in LANE_B]
+    for B, n in shapes + list(LANE_WIDE[dtype]):
+        A, b = spd(1000 * n + B, B, n, dev, dtype)
+        err = rel_err(lc.lane_cholesky_solve(A, b),
+                      lc.lane_cholesky_solve_plain(A, b))
+        if not err < tol:
+            raise AssertionError(f"lane_cholesky_solve {label} n={n} "
+                                 f"B={B}: relative error {err} >= {tol}")
+        worst = max(worst, err)
     for n in (37, 222):
         A, b = spd(3000 + n, 3, n, dev, dtype)
         A[1, n // 2, n // 2] = -1.0
@@ -793,11 +830,18 @@ def check_kernels(dev):
     t0 = time.perf_counter()
     worst = check_lane(dev, torch.float32, TOL)
     phase("kernel lane_cholesky_solve[f32] checks", t0, max_rel_err=worst,
-          n=list(LANE_N[torch.float32]), B=list(LANE_B))
+          n=list(LANE_N[torch.float32]), B=list(LANE_B),
+          also=list(LANE_WIDE[torch.float32]))
     f32 = lane_numbers(dev, torch.float32, BATCH, 222)
     phase("kernel lane_cholesky_solve[f32]", t0, **f32)
     f32_single = lane_numbers(dev, torch.float32, 1, 222)
     phase("kernel lane_cholesky_solve[f32] at B=1", t0, **f32_single)
+    # the measurement drivers' shapes: the sweep's batches, and the full
+    # (222 + F)-dim system of profile_solver's assembly+chol and dense1
+    f32_paths = {}
+    for name, (B, n) in F32_PATH_SHAPES.items():
+        f32_paths[name] = lane_numbers(dev, torch.float32, B, n)
+        phase(f"kernel {name}", t0, **f32_paths[name])
 
     t0 = time.perf_counter()
     worst = check_lane(dev, torch.float64, TOL_F64)
@@ -829,7 +873,7 @@ def check_kernels(dev):
     del chol["rel_err"]
     return {"lane_cholesky_solve[f32]": f32, "lane_cholesky_solve[f64]": f64,
             "lane_cholesky_solve[f64] n=382": f64_full,
-            "cholesky_solve": chol}
+            "cholesky_solve": chol, **f32_paths}
 
 
 def batched_problem(dev):
@@ -2077,6 +2121,261 @@ def sfm_check(dev):
                         max_rel_err=max(errs.values()))
 
 
+# the measurement drivers (`measurement drivers`): the port's
+# `evals/profile_*.py`, `bench_klt.py` and `multichip_scaling.py` through
+# their `main`, on the card, cut in reps only (and multichip_scaling to the
+# one card)
+DRIVER_REPS = "2"
+SOLVER_B = "128"        # profile_solver's B (environment variable B): its
+#                         default; dense1 there peaks at 11.2 GB on the card
+KLT_B = "16"            # bench_klt's streams (KLT_BATCH), its default
+INLOOP_BATCHES = "128,512,1024"
+FULL_VS_CPU_TOL = 1e-3  # m: profile_inloop's full variant, card f32 vs CPU f64
+KLT_CHECK_B = 2         # bench_klt streams held to the CPU
+KLT_POS_TOL = 1e-3      # px
+# each driver's result keys: the JAX driver's, and the port's device name
+# and launches per timed program
+DRIVER_KEYS = {
+    "profile_inloop": {"platform", "dtype", "batch", "F", "variant_full_ms",
+                       "variant_no_chol_ms", "variant_asm_once_ms",
+                       "inloop_cholesky_ms_per_iter",
+                       "inloop_assembly_ms_per_iter", "batch_sweep", "note"},
+    "profile_batched": {"platform", "dtype", "batch", "reps",
+                        "null_roundtrip_ms", "full_solve_ms", "per_window_us",
+                        "assembly_ms_per_iter", "schur_cholesky_ms_per_iter",
+                        "retract_ms_per_iter", "extrapolated_12it_ms",
+                        "residual_overhead_ms", "note"},
+    "profile_solver": {"platform", "B", "F", "solve12_ms", "solve1_ms",
+                       "assembly_ms", "assembly+chol_ms", "cost_ms",
+                       "gaugeQR_ms", "dense1_ms"},
+    "profile_streaming": {"platform", "F", "null_roundtrip_ms",
+                          "preint_scan_S48_ms", "assembly_ms", "solve_1it_ms",
+                          "solve_2it_ms", "solve_4it_ms", "solve_8it_ms",
+                          "solve_12it_ms", "per_iter_ms", "marg_old_ms",
+                          "_device_estimates"},
+    "bench_klt": {"metric", "value", "unit", "point_tracks_per_s", "batch",
+                  "points", "resolution", "levels", "platform",
+                  "batch_latency_ms", "note"},
+    "multichip_scaling": {"rows", "note", "solver"}}
+PORT_KEYS = {"device_name", "_launches"}
+# the times each driver measures (> 0); the differences derived from them
+# (in-loop Cholesky, stage times less the null roundtrip, the residual)
+# need only be finite
+MEASURED = {
+    "profile_inloop": ("variant_full_ms", "variant_no_chol_ms",
+                       "variant_asm_once_ms"),
+    "profile_batched": ("null_roundtrip_ms", "full_solve_ms",
+                        "per_window_us"),
+    "profile_solver": ("solve12_ms", "solve1_ms", "assembly_ms",
+                       "assembly+chol_ms", "cost_ms", "gaugeQR_ms",
+                       "dense1_ms"),
+    "profile_streaming": ("null_roundtrip_ms", "preint_scan_S48_ms",
+                          "assembly_ms", "solve_1it_ms", "solve_2it_ms",
+                          "solve_4it_ms", "solve_8it_ms", "solve_12it_ms",
+                          "marg_old_ms"),
+    "bench_klt": ("value", "point_tracks_per_s", "batch_latency_ms"),
+    "multichip_scaling": ()}
+
+
+def rows_of(by_shape):
+    """A driver's launches of one timed program ({"float32 B=128 n=222":
+    k}, `evals.measure.launches_since`) as read_counts()'s rows."""
+    counts = only({})
+    for key, k in by_shape.items():
+        dt, B, n = key.split()
+        B, n = int(B[2:]), int(n[2:])
+        if dt == "float32":
+            counts["lane_cholesky_solve[f32]"] += k
+            if n == 222 and B in (512, 1024):
+                counts[f"lane_cholesky_solve[f32] B={B}"] += k
+            if n == 382:
+                counts["lane_cholesky_solve[f32] n=382"] += k
+        else:
+            counts["lane_cholesky_solve[f64]"] += k
+            if n == 382:
+                counts["lane_cholesky_solve[f64] n=382"] += k
+    return counts
+
+
+def driver_launches_per_call(name, res):
+    """{timed program: {shape: launches per call}} that the driver's
+    result says it ran: ITERS per 12-iteration solve, one per single
+    damped solve, it per solve of it iterations, none elsewhere."""
+    f32 = lambda B, n: f"float32 B={B} n={n}"
+    if name == "profile_inloop":
+        B = res["batch"]
+        want = {f"variant_{v}": {} if v == "no_chol" else {f32(B, 222): ITERS}
+                for v in profile_inloop.VARIANTS}
+        want.update({f"prod_B{r['batch']}": {f32(r["batch"], 222): ITERS}
+                     for r in res["batch_sweep"]})
+        return want
+    if name == "profile_batched":
+        B = res["batch"]
+        return {"null_roundtrip": {}, "full_solve_12it": {f32(B, 222): ITERS},
+                "assembly_x1": {}, "schur_cholesky_x1": {f32(B, 222): 1},
+                "retract_x1": {}}
+    if name == "profile_solver":
+        B, n = res["B"], 222 + res["F"]
+        return {"solve12": {f32(B, 222): ITERS}, "solve1": {f32(B, 222): 1},
+                "assembly": {}, "assembly+chol": {f32(B, n): 1}, "cost": {},
+                "gaugeQR": {}, "dense1": {f32(B, n): 1}}
+    if name == "profile_streaming":
+        return {"null": {}, "preint": {}, "assembly": {}, "marg_old": {},
+                **{f"solve_{it}it": {f32(1, 222): it}
+                   for it in profile_streaming.SOLVE_ITERS}}
+    if name == "bench_klt":
+        return {"klt": {}}
+    return {str(r["n"]): {f32(r["batch"], 222): ITERS} for r in res["rows"]}
+
+
+def path_name(name, tag):
+    """The kernels line's path of a driver's timed program."""
+    tag = {"variant_full": "full", "variant_no_chol": "no_chol",
+           "variant_asm_once": "asm_once"}.get(tag, tag)
+    if tag.startswith("prod_B"):
+        tag = f"sweep B={tag[6:]}"
+    if name == "multichip_scaling":
+        tag = f"n={tag}"
+    return f"{name} {tag}" if tag != "klt" else name
+
+
+def untimed_launches(name, res):
+    """Launches a driver makes outside its timed programs: profile_batched
+    solves once more for the dx its retract stage takes (the JAX driver's
+    :312)."""
+    if name == "profile_batched":
+        return rows_of({f"float32 B={res['batch']} n=222": 1})
+    return only({})
+
+
+def check_driver(name, res, counts):
+    """Gates on one driver's result: every key present, every measured
+    time finite and > 0 and every number finite, dense1 a number, and the
+    lane kernel's launches of every timed program exactly as its solves
+    make them (calls x per call) and, with its untimed_launches, as the
+    counts read around the call (in this process; multichip_scaling's
+    solves run in a child process).
+    Returns the launches per path."""
+    missing = (DRIVER_KEYS[name] | PORT_KEYS) - set(res)
+    if missing:
+        raise AssertionError(f"{name}: result keys missing: {missing}")
+    nums = {k: v for k, v in res.items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)}
+    nums.update({f"{k}.{i}.{kk}": vv for k in ("batch_sweep", "rows")
+                 for i, row in enumerate(res.get(k, ()))
+                 for kk, vv in row.items() if isinstance(vv, (int, float))})
+    bad = [k for k, v in nums.items() if not np.isfinite(v)]
+    bad += [k for k in MEASURED[name] if not (isinstance(res[k], float)
+                                              and res[k] > 0)]
+    bad += [f"rows.{i}" for i, row in enumerate(res.get("rows", ()))
+            if "error" in row or not row["latency_ms"] > 0]
+    bad += [f"batch_sweep.{i}" for i, row in enumerate(
+        res.get("batch_sweep", ())) if not row["ms"] > 0]
+    if bad:
+        raise AssertionError(f"{name}: not a finite time > 0: {bad}")
+    want = driver_launches_per_call(name, res)
+    got = res["_launches"]
+    if set(got) != set(want):
+        raise AssertionError(f"{name}: timed programs {sorted(got)}, want "
+                             f"{sorted(want)}")
+    paths, total = {}, untimed_launches(name, res)
+    for tag, per_call in want.items():
+        expect = {shape: k * got[tag]["calls"] for shape, k in
+                  per_call.items()}
+        if got[tag]["by_shape"] != expect:
+            raise AssertionError(f"{name} {tag}: launches "
+                                 f"{got[tag]['by_shape']}, want {expect} "
+                                 f"({got[tag]['calls']} calls)")
+        paths[path_name(name, tag)] = rows_of(got[tag]["by_shape"])
+        total = {k: total[k] + paths[path_name(name, tag)][k] for k in total}
+    if name == "multichip_scaling":
+        total = only({})
+    if counts != total:
+        raise AssertionError(f"{name}: launches counted {counts}, the "
+                             f"driver's programs account for {total}")
+    return paths
+
+
+def measurement_drivers(dev, children):
+    """The port's measurement drivers on the card, each through its `main`
+    with `--device cuda`, cut in reps (DRIVER_REPS) only but for
+    multichip_scaling's one mesh size (`--devices 1`: one card); each
+    driver's launches counted around its call and per timed program (its
+    `_launches`), its result gated (check_driver). profile_inloop's full
+    variant on the first two windows, card (f32) against the CPU (f64),
+    within FULL_VS_CPU_TOL; bench_klt's tracks of KLT_CHECK_B streams card
+    against CPU on the same images. Runs while the children run, and says
+    how many still do at its start and end. Returns (launches per path,
+    numbers)."""
+    t_phase = time.perf_counter()
+    running = lambda: sum(p.poll() is None for p in children.values())
+    print(f"[measurement drivers] children still running: {running()}",
+          flush=True)
+    problem = measure.bench_problem(dev, torch.float32)
+    argv = ["--device", "cuda", "--reps", DRIVER_REPS]
+    runs = {
+        "profile_inloop": lambda: profile_inloop.main(
+            argv + ["--batches", INLOOP_BATCHES], problem=problem),
+        "profile_batched": lambda: profile_batched.main(argv,
+                                                        problem=problem),
+        "profile_solver": lambda: profile_solver.main(argv, problem=problem),
+        "profile_streaming": lambda: profile_streaming.main(
+            argv, problem=problem),
+        "bench_klt": lambda: bench_klt.main(argv),
+        "multichip_scaling": lambda: multichip_scaling.main(
+            argv + ["--devices", "1"])}
+    env = {"B": SOLVER_B, "KLT_BATCH": KLT_B}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    launches, results = {}, {}
+    try:
+        for name, run in runs.items():
+            t0 = time.perf_counter()
+            reset_counts()
+            res = run()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            launches.update(check_driver(name, res, counts))
+            results[name] = {k: v for k, v in res.items()
+                             if k != "_launches"}
+            phase(f"measurement drivers: {name}", t0, launches=counts)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    t0 = time.perf_counter()
+    states, datas = measure.make_batch(problem, 2)
+    on_cpu = lambda t: fac.map_tensors(
+        lambda x: x.cpu().double() if x.is_floating_point() else x.cpu(), t)
+    card = profile_inloop.variant_loop("full", states, datas)[0].p[:, 0, 0]
+    cpu = profile_inloop.variant_loop("full", on_cpu(states),
+                                      on_cpu(datas))[0].p[:, 0, 0]
+    full_dp = float((card.cpu().double() - cpu).abs().max())
+    inputs = bench_klt.make_inputs(KLT_CHECK_B, dev)
+    klt_card = bench_klt.track_batch(*inputs)
+    klt_cpu = bench_klt.track_batch(*(x.cpu() for x in inputs))
+    status_equal = torch.equal(klt_card.status.cpu(), klt_cpu.status)
+    kept = klt_cpu.status
+    klt_dp = float((klt_card.pts.cpu() - klt_cpu.pts)[kept].abs().max())
+    phase("measurement drivers vs CPU", t0, full_p00_max_abs_dp=full_dp,
+          klt_tracked=int(kept.sum()), of=kept.numel(),
+          klt_max_abs_dp=klt_dp, klt_status_equal=status_equal)
+    if not (full_dp <= FULL_VS_CPU_TOL and status_equal
+            and klt_dp <= KLT_POS_TOL and bool(kept.any())):
+        raise AssertionError(f"measurement drivers vs CPU: full variant "
+                             f"p[0, 0] {full_dp} m, klt {klt_dp} px, status "
+                             f"equal {status_equal}")
+    results["vs_cpu"] = dict(full_p00_max_abs_dp=full_dp,
+                             klt_max_abs_dp=klt_dp)
+    phase("measurement drivers", t_phase, cuts=f"reps={DRIVER_REPS},"
+          f"profile_solver_B={SOLVER_B},multichip_devices=1",
+          children_still_running=running())
+    return launches, results
+
+
 def long_run_loop(dev):
     """The port's long run with loop closure on the card, in-process:
     `python -m cerberus_tpu_torch.evals.long_run` with LONG_RUN_ARGV
@@ -2590,7 +2889,12 @@ def main():
     main_path = {"lane_cholesky_solve[f32]": "solve_window_batched",
                  "lane_cholesky_solve[f64]": "long run loop",
                  "lane_cholesky_solve[f64] n=382": "solve_window TFT",
-                 "cholesky_solve": "solve_window_batched"}
+                 "cholesky_solve": "solve_window_batched",
+                 "lane_cholesky_solve[f32] B=512": "profile_inloop sweep B=512",
+                 "lane_cholesky_solve[f32] B=1024":
+                     "profile_inloop sweep B=1024",
+                 "lane_cholesky_solve[f32] n=382":
+                     "profile_solver assembly+chol"}
     rows = []
     for (name, dtype), meta in KERNELS.items():
         rows.append(dict(
@@ -2630,6 +2934,9 @@ def main_phases(args, dev, children):
     print("fleet: " + json.dumps(fleet_nums))
     launches["sfm check"], sfm = sfm_check(dev)
     print("sfm: " + json.dumps(sfm))
+    driver_launches, drivers = measurement_drivers(dev, children)
+    launches.update(driver_launches)
+    print("measurement drivers: " + json.dumps(drivers))
     for name, proc in children.items():
         child_launches, nums = finish_child(name, proc)
         launches.update(child_launches)

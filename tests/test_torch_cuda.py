@@ -12,11 +12,12 @@ steps stay sync-free with the debug hooks off and a metrics logger on; the
 pooled calibration step under a one-process nccl group; the evaluation
 scripts run on the card by default; a step with td free stays sync-free
 and launches the f64 kernel once per LM iteration; the robustness battery
-runs a case on the card at full width.
+runs a case on the card at full width; the measurement drivers run on the
+card by default, and profile_inloop's variant loop never waits for it.
 (chip_smoke.py holds the kernels to their plain versions and the card's
 solve, replays, tracker and EKF to the CPU's.) Every test here but the
-OpenCV-free camera's and the evaluation scripts' needs a CUDA device and
-skips without one.
+OpenCV-free camera's and the evaluation and measurement scripts' needs a
+CUDA device and skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is missing (tests/conftest.py imports JAX; skip it there):
@@ -708,3 +709,91 @@ def test_pooled_calibration_step_under_nccl(cuda):
         dist.destroy_process_group()
     for a, b in zip(got[1:], ref[1:]):
         assert torch.equal(a, b)
+
+
+MEASUREMENT_DRIVERS = ("profile_inloop", "profile_batched", "profile_solver",
+                       "profile_streaming", "bench_klt", "multichip_scaling")
+
+
+def test_inloop_variant_never_waits_for_the_device(small_batch):
+    """profile_inloop's `full` variant (12 iterations, no convergence mask,
+    no re-anchoring) queues its whole loop without a read-back, as the
+    production loop does, and launches the f32 kernel once per iteration
+    at (B, 222)."""
+    from cerberus_tpu_torch.evals import profile_inloop
+
+    states, datas = small_batch
+    solve = profile_inloop.make_solver("full")
+    solve(states, datas)
+    torch.cuda.synchronize()
+    lc.LAUNCHES_BY_SHAPE.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = solve(states, datas)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert dict(lc.LAUNCHES_BY_SHAPE) == {(torch.float32, 3, 222): 12}
+    assert torch.isfinite(out)
+
+
+def test_measurement_drivers_run_on_the_card_unless_told(monkeypatch):
+    """The measurement drivers take the card by default: where there is
+    none, each raises without --device cpu (no fallback); on the card each
+    main runs at a small size (F = 24, B = 2, one rep), f32, with the
+    lane kernel's launches per timed program as its solves make them.
+    Runs on the CPU too."""
+    import importlib
+
+    drivers = {name: importlib.import_module(f"cerberus_tpu_torch.evals."
+                                             f"{name}")
+               for name in MEASUREMENT_DRIVERS}
+    if not torch.cuda.is_available():
+        for name, mod in drivers.items():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                mod.main([])
+        return
+    from cerberus_tpu_torch.data.simulator import SimConfig, simulate
+    from cerberus_tpu_torch.data.window_builder import build_window_from_sim
+
+    sim = simulate(SimConfig(duration=4.0, speed=0.5, seed=3, n_landmarks=200))
+    data, truth, _ = build_window_from_sim(sim, kf_stride=2, start_cam=2,
+                                           F=24, device="cuda",
+                                           dtype=torch.float32)
+    problem = (data, truth)
+    monkeypatch.setenv("B", "2")
+    monkeypatch.setenv("KLT_BATCH", "2")
+    one = ["--reps", "1"]
+    res = {
+        "profile_inloop": drivers["profile_inloop"].main(
+            one + ["--batch", "2", "--batches", "2"], problem=problem),
+        "profile_batched": drivers["profile_batched"].main(
+            one + ["--batch", "2"], problem=problem),
+        "profile_solver": drivers["profile_solver"].main(one, problem=problem),
+        "profile_streaming": drivers["profile_streaming"].main(
+            one, problem=problem),
+        "bench_klt": drivers["bench_klt"].main(one),
+        "multichip_scaling": drivers["multichip_scaling"].main(
+            one + ["--devices", "1", "--batch-per-device", "2"],
+            problem=problem)}
+    for name, r in res.items():
+        assert r.get("platform", "cuda") == "cuda", name
+    assert res["multichip_scaling"]["rows"][0]["platform"] == "cuda"
+    assert isinstance(res["profile_solver"]["dense1_ms"], float)
+    at = lambda B, n, k: {f"float32 B={B} n={n}": 2 * k}  # 2 calls each
+    inloop = res["profile_inloop"]["_launches"]
+    assert inloop["variant_full"]["by_shape"] == at(2, 222, 12)
+    assert inloop["variant_asm_once"]["by_shape"] == at(2, 222, 12)
+    assert inloop["variant_no_chol"]["by_shape"] == {}
+    assert inloop["prod_B2"]["by_shape"] == at(2, 222, 12)
+    solver = res["profile_solver"]["_launches"]
+    n_full = 222 + 24
+    assert solver["solve1"]["by_shape"] == at(2, 222, 1)
+    assert solver["assembly+chol"]["by_shape"] == at(2, n_full, 1)
+    assert solver["dense1"]["by_shape"] == at(2, n_full, 1)
+    stream = res["profile_streaming"]["_launches"]
+    for it in (1, 2, 4, 8, 12):
+        assert stream[f"solve_{it}it"]["by_shape"] == at(1, 222, it)
+    assert res["multichip_scaling"]["_launches"]["1"]["by_shape"] == \
+        {"float32 B=2 n=222": 12 * 2}
+    assert res["bench_klt"]["_launches"]["klt"]["by_shape"] == {}

@@ -140,6 +140,38 @@ NO_JAX_SCRIPT = textwrap.dedent("""
     assert res["_meta"]["platform"] == "cpu"
     assert set(res) == {"_meta", "td_init_+20ms", "mono_swap"}
     assert not any("error" in v for k, v in res.items() if k != "_meta")
+    from cerberus_tpu_torch.evals import (bench_klt, measure,
+                                          multichip_scaling, profile_batched,
+                                          profile_inloop, profile_solver,
+                                          profile_streaming)
+    torch.set_num_threads(1)   # the drivers' pieces: many small ops
+    sts, dts = measure.make_batch((data, truth), 2)
+    for variant in profile_inloop.VARIANTS:
+        assert torch.isfinite(profile_inloop.make_solver(variant, 1)(sts, dts))
+    *pieces, cost = profile_batched.assemble_once(sts, dts)
+    dx = profile_batched.schur_once(*pieces, torch.full((2,), 1e-4,
+                                                        dtype=torch.float64))
+    assert torch.isfinite(profile_batched.scalar_of(
+        profile_batched.retract_once(sts, dx)))
+    for name, fn in dict(profile_solver.PROGRAMS,
+                         dense1=profile_solver.dense1).items():
+        if name != "solve12":
+            assert torch.isfinite(fn(sts, dts)).all(), name
+    dev = torch.device("cpu")
+    P = profile_streaming.preint(PreintParams.from_config(
+        EstimatorConfig(), device="cpu"))(*profile_streaming.preint_inputs(
+            dev, torch.float64, S=8))
+    assert torch.isfinite(P).all()
+    st1 = truth._replace(p=truth.p + 0.02)
+    for fn in (profile_streaming.assembly, profile_streaming.solve(1),
+               profile_streaming.marg_old):
+        assert torch.isfinite(fn(st1, data)).all()
+    res = bench_klt.track_batch(*bench_klt.make_inputs(2, dev, H=64, W=96,
+                                                       N=8), levels=2)
+    assert res.pts.shape == (2, 8, 2) and bool(res.status.any())
+    st2 = multichip_scaling.solve_on_mesh(sts, dts, make_mesh(2, device="cpu"),
+                                          SolveOptions(max_iters=1))
+    assert torch.isfinite(st2.p).all()
     assert not any(name == "jax" or name.startswith(("jax.", "jaxlib"))
                    or name.startswith("cerberus_tpu.")
                    for name, mod in sys.modules.items() if mod is not None)
