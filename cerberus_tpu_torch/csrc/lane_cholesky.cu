@@ -1,5 +1,7 @@
 // Batched Cholesky solve x = A^-1 b of B independent SPD systems, f32 and
-// f64, for sm_90a. One thread block of 512 threads solves one system.
+// f64, for sm_90a. One thread block of 512 threads solves one system; or,
+// for a few f64 systems too large for one block's shared memory, one
+// thread-block cluster solves one system (cluster_cholesky.cuh).
 //
 // Replaces the TPU kernel cerberus_tpu/ops/lane_cholesky.py::
 // lane_cholesky_solve (Pallas body `_kernel`), which the LM solve
@@ -18,7 +20,9 @@
 // factor stays resident in shared memory up to n = 320 in f32 (116,480 B at
 // n = 222) and n = 224 in f64 (218,624 B at n = 222); above that the tiles
 // are streamed from a workspace W that the Python wrapper allocates
-// (ops/lane_cholesky.py::tile_plan).
+// (ops/lane_cholesky.py::tile_plan), unless the batch is small enough for
+// the f64 cluster body (ops/lane_cholesky.py::solve_plan), whose ranks
+// hold the triangle resident between them.
 //
 // Bound at the paths' shapes on an H100 SXM (700 W): the lower triangle of
 // A, b and x, es * (B n(n+1)/2 + 2 B n) bytes, over 3.35 TB/s, against
@@ -27,13 +31,17 @@
 //     7.2 us: bound by the operations; at B = 1 (solve_window) 0.056 us;
 //   * f64, B = 1, n = 222: 0.2 MB, 0.06 us; 3.7 MFLOP at 34 TFLOP/s,
 //     0.11 us: bound by the operations. One system fills one SM of 132,
-//     whose own f64 rate is 1/132 of that: 14 us.
+//     whose own f64 rate is 1/132 of that: 14 us;
+//   * f64, B = 1, n = 382 (the cluster body): 0.59 MB, 0.18 us; 18.9 MFLOP
+//     at 34 TFLOP/s, 0.56 us; on the cluster's 16 SMs, 4.6 us.
 
 #include <cuda_runtime.h>
 
 #include "blocked_cholesky.cuh"
+#include "cluster_cholesky.cuh"
 
 namespace bc = blocked_cholesky;
+namespace cc = cluster_cholesky;
 
 extern "C" {
 
@@ -57,6 +65,19 @@ int lane_cholesky_solve_f64(const double* A, const double* b, double* x,
   return bc::launch<double, 16>(A, b, bc::Undamped<double>{}, x, W, batch, n,
                                 nb, resident, panel_in_smem, smem, device,
                                 stream);
+}
+
+// f64 systems too large for one block, a few at a time: one cluster of
+// `cluster` blocks per system (cluster_cholesky.cuh), the plan of
+// ops/lane_cholesky.py::solve_plan (nb 16, cluster, smem bytes per block);
+// W: the staged panels' workspace. Returns the CUDA error code (0
+// when the launch was accepted).
+int lane_cholesky_solve_cluster_f64(const double* A, const double* b,
+                                    double* x, double* W, int batch, int n,
+                                    int nb, int cluster, int smem,
+                                    int device, void* stream) {
+  return cc::launch<double, 16>(A, b, x, W, batch, n, nb, cluster, smem,
+                                device, stream);
 }
 
 const char* lane_cholesky_error_string(int code) {

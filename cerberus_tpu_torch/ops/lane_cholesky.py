@@ -2,14 +2,18 @@
 
 Port of `cerberus_tpu/ops/lane_cholesky.py::lane_cholesky_solve`. On a CUDA
 tensor `lane_cholesky_solve` launches the hand-written kernel
-`csrc/lane_cholesky.cu` (f32 or f64, one thread block per system, a blocked
-factor in tiles; the source says what bounds it). On a CPU tensor it runs
+`csrc/lane_cholesky.cu` (f32 or f64, a blocked factor in tiles; the sources
+say what bounds it): one thread block per system, or, for a few f64
+systems too large for one block's shared memory, one thread-block cluster
+per system (`csrc/cluster_cholesky.cuh`). On a CPU tensor it runs
 `lane_cholesky_solve_plain`, the same function in plain torch ops. There is
 no fallback from the card to the plain version: a CUDA tensor the kernel
 does not take raises.
 
-`tile_plan` is the kernels' layout (tile width, padded n, resident or
-streamed tiles, shared memory), shared with `ops/cholesky_solve.py`.
+`tile_plan` is the one-block layout (tile width, padded n, resident or
+streamed tiles, shared memory), shared with `ops/cholesky_solve.py`;
+`solve_plan` picks between it and the cluster layout (`cluster_plan`: tile
+width, cluster size, each rank's shared memory) for a batch.
 
 `LAUNCHES` counts the kernel's launches by (dtype, n), and
 `LAUNCHES_BY_SHAPE` the same launches by (dtype, B, n), so a run can show
@@ -35,6 +39,12 @@ LAUNCHES = collections.Counter()   # (dtype, n) -> launches
 LAUNCHES_BY_SHAPE = collections.Counter()   # (dtype, B, n) -> launches
 
 SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on sm_90
+SM_COUNT = 132         # SMs of an H100 SXM
+# the f64 cluster body's tile width, and its cluster sizes in the order
+# solve_plan tries them: the fastest at (1, 382) first, then smaller
+# clusters for larger batches (csrc/DESIGN.md)
+CLUSTER_NB = 16
+CLUSTER_SIZES = (16, 8, 4)
 
 _ENTRY = {torch.float32: "lane_cholesky_solve_f32",
           torch.float64: "lane_cholesky_solve_f64"}
@@ -74,6 +84,62 @@ def tile_plan(n: int, dtype=torch.float32) -> TilePlan:
     return TilePlan(nb, nt * nb, False, False, vectors, tri)
 
 
+class ClusterPlan(NamedTuple):
+    """Layout of one system over a cluster in csrc/cluster_cholesky.cuh:
+    block-column J of the tile triangle lives in rank J % cluster."""
+    nb: int                 # tile width
+    n_pad: int              # n rounded up to a multiple of nb
+    cluster: int            # blocks (ranks) per system
+    rank_bytes: tuple       # shared memory each rank's data takes
+    smem_bytes: int         # dynamic shared memory of every block (rank 0's)
+    work_elems: int         # staged panels' workspace elements per system
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(n: int, cluster: int) -> ClusterPlan:
+    """The f64 cluster layout of an n x n system in CLUSTER_NB-wide tiles
+    over `cluster` ranks: each rank's own block-columns, a panel buffer (the
+    nt - 1 tiles below a diagonal tile and nb entries of y), one tile (the
+    next diagonal tile's panel tile) and two nt*nb vectors (right-hand
+    side, the diagonal's reciprocals). Every block gets rank 0's bytes (it
+    keeps the most tiles), so that the layout is the same in every rank.
+    The panels pass between ranks through a global workspace of two
+    staged panels per system (the nt - 1 tiles below a diagonal tile and
+    y_K each)."""
+    nb = CLUSTER_NB
+    nt = -(-n // nb)
+    panel = (nt - 1) * nb * nb + nb
+    shared = panel + nb * nb + 2 * nt * nb
+    rank_bytes = tuple(8 * (len(cluster_tiles(nt, cluster, r)) * nb * nb
+                            + shared) for r in range(cluster))
+    return ClusterPlan(nb, nt * nb, cluster, rank_bytes, rank_bytes[0],
+                       2 * panel)
+
+
+def cluster_tiles(nt: int, cluster: int, rank: int) -> list:
+    """The tiles (I, J) that rank keeps, in its storage order: its
+    block-columns J = rank, rank + cluster, ..., each from (J, J) down."""
+    return [(I, J) for J in range(rank, nt, cluster) for I in range(J, nt)]
+
+
+@functools.lru_cache(maxsize=None)
+def solve_plan(n: int, dtype, batch: int):
+    """The kernel's layout for `batch` systems of n x n `dtype`: the
+    cluster body (a ClusterPlan) for f64 systems that one block would
+    stream (n > 224) when the batch's clusters fit the card at once
+    (batch * cluster <= SM_COUNT): the first of CLUSTER_SIZES whose ranks
+    fit a block's shared memory; else tile_plan's one block per system.
+    f32, and f64 systems resident in one block, stay on tile_plan."""
+    one = tile_plan(n, dtype)
+    if dtype != torch.float64 or one.resident:
+        return one
+    for c in CLUSTER_SIZES:
+        p = cluster_plan(n, c)
+        if p.smem_bytes <= SMEM_LIMIT and batch * c <= SM_COUNT:
+            return p
+    return one
+
+
 def smem_bytes(n: int, dtype=torch.float32) -> int:
     """Shared memory the kernel's block needs for an n x n system."""
     return tile_plan(n, dtype).smem_bytes
@@ -106,6 +172,10 @@ def _library() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
                 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        fn = lib.lane_cholesky_solve_cluster_f64
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         lib.lane_cholesky_error_string.argtypes = [ctypes.c_int]
         lib.lane_cholesky_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -117,7 +187,8 @@ def lane_cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     CUDA tensors: f32 or f64 (both the same), contiguous, any n whose two
     vectors fit a block's shared memory (`tile_plan`); the kernel is
-    launched on the current stream without synchronising.
+    launched on the current stream without synchronising, with the layout
+    of `solve_plan` (a cluster per system for a few large f64 systems).
     CPU tensors: any float dtype, through the plain version."""
     if A.ndim != 3 or A.shape[1] != A.shape[2] or tuple(b.shape) != tuple(A.shape[:2]):
         raise ValueError(f"want A (B, n, n) and b (B, n), got {tuple(A.shape)} "
@@ -134,18 +205,36 @@ def lane_cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (A.is_contiguous() and b.is_contiguous()):
         raise ValueError("the kernel takes contiguous A and b")
     Bn, n = b.shape
-    work, plan = launch_args(n, A.dtype, Bn, A.device)
+    x = _launch(A, b, solve_plan(n, A.dtype, Bn))
+    LAUNCHES[(A.dtype, n)] += 1
+    LAUNCHES_BY_SHAPE[(A.dtype, Bn, n)] += 1
+    return x
+
+
+def _launch(A: torch.Tensor, b: torch.Tensor, plan) -> torch.Tensor:
+    """x from one launch of the kernel on checked CUDA A and b, with the
+    layout `plan` (a TilePlan or a ClusterPlan of these shapes); raises
+    with CUDA's error string when the launch is refused, such as a cluster
+    that the card cannot place."""
+    Bn, n = b.shape
     x = torch.empty_like(b)
     lib = _library()
-    err = getattr(lib, _ENTRY[A.dtype])(
-        A.data_ptr(), b.data_ptr(), x.data_ptr(),
-        None if work is None else work.data_ptr(), Bn, n, *plan,
-        A.device.index, torch.cuda.current_stream(A.device).cuda_stream)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    if isinstance(plan, ClusterPlan):
+        work = torch.empty((Bn, plan.work_elems), dtype=A.dtype,
+                           device=A.device)
+        err = lib.lane_cholesky_solve_cluster_f64(
+            A.data_ptr(), b.data_ptr(), x.data_ptr(), work.data_ptr(), Bn, n,
+            plan.nb, plan.cluster, plan.smem_bytes, A.device.index, stream)
+    else:
+        work, args = launch_args(n, A.dtype, Bn, A.device)
+        err = getattr(lib, _ENTRY[A.dtype])(
+            A.data_ptr(), b.data_ptr(), x.data_ptr(),
+            None if work is None else work.data_ptr(), Bn, n, *args,
+            A.device.index, stream)
     if err != 0:
         raise RuntimeError("lane_cholesky_solve launch failed: "
                            + lib.lane_cholesky_error_string(err).decode())
-    LAUNCHES[(A.dtype, n)] += 1
-    LAUNCHES_BY_SHAPE[(A.dtype, Bn, n)] += 1
     return x
 
 

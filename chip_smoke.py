@@ -13,15 +13,21 @@ Phases, each printed with its elapsed seconds:
      started together, into build/cerberus_tpu_torch/, with each kernel's
      registers, shared memory and spills as ptxas reports them;
   3. kernels: each kernel against its plain torch version on the card at
-     tile-aligned and ragged n, resident and streamed tiles, and a batch
-     with one system that is not SPD (its x NaN, the others as alone); then
+     tile-aligned and ragged n, resident and streamed tiles, the f64 cluster
+     body (one thread-block cluster per system: f64, n > 224, a batch of at
+     most 132 / cluster) at B = 1, 2, 4, 8 and 9 and n = 225-384, and a
+     batch with one system that is not SPD (its x NaN, the others as
+     alone); two launches of the cluster body on one input give equal
+     bits; then
      at its paths' shapes, timed with CUDA events beside its plain version,
      one library call computing the same function, and the least time the
      card could take (cuda_ms says how):
        - lane_cholesky_solve f32 (the batched solve's and solve_window's;
          B = 512 and 1,024, the measurement drivers' sweep; n = 382 at
          B = 128, profile_solver's full system) and f64 (the streaming
-         estimator's; n = 382, the solver's full-system paths);
+         estimator's; n = 382, the solver's full-system paths, through the
+         cluster body: its row names the body and the cluster size, with
+         the bound of the cluster's own SMs beside the card's);
        - cholesky_solve, f32 (on no path of the port, as its TPU original);
   4. batched path: the batched full-width window solve — 128 windows of the
      10 s simulated sequence (11 frames, F = 160, 222-dim reduced system),
@@ -224,6 +230,7 @@ from cerberus_tpu_torch.utils.metrics import read_metrics  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 F64_FLOP_PER_S = 67e12
+F64_FMA_FLOP_PER_S = 34e12   # float64 outside the tensor cores
 
 BATCH = 128          # windows in the batched solve
 ITERS = 12           # LM iterations (reference max_num_iterations)
@@ -236,7 +243,9 @@ LANE_N = {torch.float32: (1, 16, 31, 33, 37, 222, 238, 240, 241, 321, 382,
                           384)}
 LANE_B = (1, 2, 128, 130)
 # (B, n) also checked: the measurement drivers' sweep at B = 512 and 1,024
-LANE_WIDE = {torch.float32: ((512, 222), (1024, 222)), torch.float64: ()}
+# and the f64 cluster body's batches and a ragged n
+LANE_WIDE = {torch.float32: ((512, 222), (1024, 222)),
+             torch.float64: ((4, 384), (1, 383), (8, 382), (9, 382))}
 TIMED_CALLS = 50     # kernel or library calls between one event pair
 STREAM_FRAMES = 20   # camera frames per streaming sequence
 CHECK_FRAMES = 14    # frames of sequence A cross-checked against the CPU
@@ -712,7 +721,9 @@ def build():
 
 
 def lane_numbers(dev, dtype, B, n):
-    """Error, times and bound of lane_cholesky_solve at (B, n)."""
+    """Error, times and bound of lane_cholesky_solve at (B, n); the body
+    (one block, or a cluster per system) and, for a cluster, the bound of
+    its own SMs (cluster / lc.SM_COUNT of the f64 FMA rate)."""
     A, b = spd(7, B, n, dev, dtype)
     x = lc.lane_cholesky_solve(A, b)
     xp = lc.lane_cholesky_solve_plain(A, b)
@@ -724,12 +735,22 @@ def lane_numbers(dev, dtype, B, n):
 
     es = A.element_size()
     # the lower triangle of A (all a Cholesky solve reads) and b in, x out
+    flops = B * (n ** 3 / 3 + 2 * n * n)
     bound_ms, bound_by = bound(
-        es * (B * n * (n + 1) // 2 + 2 * B * n), B * (n ** 3 / 3 + 2 * n * n),
+        es * (B * n * (n + 1) // 2 + 2 * B * n), flops,
         F64_FLOP_PER_S if dtype == torch.float64 else F32_FLOP_PER_S)
+    plan = lc.solve_plan(n, dtype, B)
+    body = {}
+    if isinstance(plan, lc.ClusterPlan):
+        body = dict(body="cluster", cluster=plan.cluster,
+                    cluster_bound_ms=flops / (F64_FMA_FLOP_PER_S * B
+                                              * plan.cluster / lc.SM_COUNT)
+                    * 1e3)
+    else:
+        body = dict(body="one block")
     return timed(dict(max_abs_err=float((x - xp).abs().max()),
                       bound_ms=bound_ms, bound_by=bound_by, shape=[B, n],
-                      plan=lc.tile_plan(n, dtype)._asdict()),
+                      **body, plan=plan._asdict()),
                  lambda: lc.lane_cholesky_solve(A, b),
                  lambda: lc.lane_cholesky_solve_plain(A, b), library)
 
@@ -798,7 +819,9 @@ def check_lane(dev, dtype, tol):
     """lane_cholesky_solve against its plain version at every n of
     LANE_N[dtype] and B of LANE_B and at LANE_WIDE[dtype], then on a batch
     whose middle system is not SPD: its x must hold NaN, as the plain
-    version's does, and the others must agree as before."""
+    version's does, and the others must agree as before (at n = 382 in f64
+    a cluster batch); then two launches on one input at the f64 full
+    system (the cluster body): equal bits."""
     label = "f32" if dtype == torch.float32 else "f64"
     worst = 0.0
     shapes = [(B, n) for n in LANE_N[dtype] for B in LANE_B]
@@ -810,7 +833,7 @@ def check_lane(dev, dtype, tol):
             raise AssertionError(f"lane_cholesky_solve {label} n={n} "
                                  f"B={B}: relative error {err} >= {tol}")
         worst = max(worst, err)
-    for n in (37, 222):
+    for n in (37, 222, 382):
         A, b = spd(3000 + n, 3, n, dev, dtype)
         A[1, n // 2, n // 2] = -1.0
         x, xp = lc.lane_cholesky_solve(A, b), lc.lane_cholesky_solve_plain(A, b)
@@ -821,6 +844,12 @@ def check_lane(dev, dtype, tol):
         if not err < tol:
             raise AssertionError(f"lane_cholesky_solve {label} n={n}: beside "
                                  f"a system not SPD, relative error {err}")
+    A, b = spd(4000, 1, 382, dev, dtype)
+    x1, x2 = lc.lane_cholesky_solve(A, b), lc.lane_cholesky_solve(A, b)
+    if not torch.equal(x1, x2):
+        raise AssertionError(f"lane_cholesky_solve {label} n=382: two "
+                             f"launches on one input differ by "
+                             f"{float((x1 - x2).abs().max())}")
     return worst
 
 
@@ -846,7 +875,12 @@ def check_kernels(dev):
     t0 = time.perf_counter()
     worst = check_lane(dev, torch.float64, TOL_F64)
     phase("kernel lane_cholesky_solve[f64] checks", t0, max_rel_err=worst,
-          n=list(LANE_N[torch.float64]), B=list(LANE_B))
+          n=list(LANE_N[torch.float64]), B=list(LANE_B),
+          also=list(LANE_WIDE[torch.float64]),
+          cluster_shapes=[[B, n] for B in LANE_B
+                          for n in LANE_N[torch.float64]
+                          if isinstance(lc.solve_plan(n, torch.float64, B),
+                                        lc.ClusterPlan)])
     f64 = lane_numbers(dev, torch.float64, 1, 222)
     phase("kernel lane_cholesky_solve[f64]", t0, **f64)
     f64_batch = lane_numbers(dev, torch.float64, BATCH, 222)

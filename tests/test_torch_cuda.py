@@ -5,7 +5,9 @@ EKF step ever waits for the device; the tracker's and the EKF's fetches
 wait for their own streams only; the device tracker runs without OpenCV;
 the solver's full-system paths (TFT, FxT) never wait either and reach the
 f64 kernel at n = 222 + F, which agrees with its plain version at n = 382
-and 384; the pose graph's Gauss-Newton queues without a wait and agrees with the
+and 384 and at ragged n through the cluster body, gives NaN alone for a
+system that is not SPD there, equal bits on two launches, and raises for
+a cluster the card cannot place; the pose graph's Gauss-Newton queues without a wait and agrees with the
 CPU at 512 and 1024 nodes; the fleet solve reaches the lane kernel; a card
 replay runs the native sensor sync (equal to one on PySensorSync), its
 steps stay sync-free with the debug hooks off and a metrics logger on; the
@@ -217,17 +219,55 @@ def test_full_system_solve_never_waits_for_the_device(small_batch,
     assert torch.isfinite(new.p).all() and info.cost <= info.cost0
 
 
-@pytest.mark.parametrize("B,n", [(1, 382), (2, 384)])
+@pytest.mark.parametrize("B,n", [(1, 382), (2, 384), (2, 382), (4, 384),
+                                 (1, 225), (1, 239), (1, 383), (9, 382)])
 def test_kernel_f64_at_the_full_system(cuda, B, n):
     """The f64 kernel at the solver's full-system size (222 + 160, padded to
-    384: 24 tiles a side, streamed from the workspace) against its plain
-    version, 1e-10 relative."""
+    384: 24 tiles a side, too many for one block) and at ragged n above
+    224, through the cluster body (one thread-block cluster per system;
+    B = 9 takes clusters of 8), against its plain version, 1e-10
+    relative."""
     A, b = _spd(9 * n + B, B, n, cuda)
     A, b = A.double(), b.double()
     assert not lc.tile_plan(n, torch.float64).resident
+    assert isinstance(lc.solve_plan(n, torch.float64, B), lc.ClusterPlan)
     err = _rel_err(lc.lane_cholesky_solve(A, b),
                    lc.lane_cholesky_solve_plain(A, b))
     assert err < 1e-10
+
+
+def test_cluster_kernel_not_spd_gives_nan_alone(cuda):
+    """A system that is not SPD in a batch of clusters gives NaN in its x
+    only; the other systems agree with the plain version (1e-10)."""
+    A, b = _spd(77, 3, 382, cuda)
+    A, b = A.double(), b.double()
+    A[1, 191, 191] = -1.0
+    assert isinstance(lc.solve_plan(382, torch.float64, 3), lc.ClusterPlan)
+    x, xp = lc.lane_cholesky_solve(A, b), lc.lane_cholesky_solve_plain(A, b)
+    assert torch.isnan(x[1]).any() and torch.isnan(xp[1]).any()
+    assert torch.isfinite(x[[0, 2]]).all()
+    assert _rel_err(x[[0, 2]], xp[[0, 2]]) < 1e-10
+
+
+def test_cluster_kernel_gives_equal_bits(cuda):
+    """Two launches of the cluster body on one input give the same bits:
+    every sum runs in a fixed order, with no floating-point atomics."""
+    A, b = _spd(78, 2, 382, cuda)
+    A, b = A.double(), b.double()
+    x1 = lc.lane_cholesky_solve(A, b)
+    x2 = lc.lane_cholesky_solve(A, b)
+    assert torch.equal(x1, x2)
+
+
+def test_cluster_the_card_cannot_place_raises(cuda):
+    """A cluster of 32 blocks, more than the card places, raises with
+    CUDA's error string; nothing falls back to another body."""
+    A, b = _spd(79, 1, 382, cuda)
+    A, b = A.double(), b.double()
+    plan = lc.solve_plan(382, torch.float64, 1)._replace(cluster=32)
+    with pytest.raises(RuntimeError, match="launch failed: .+"):
+        lc._launch(A, b, plan)
+        torch.cuda.synchronize()
 
 
 def test_streaming_step_never_waits_for_the_device(cuda):

@@ -135,3 +135,88 @@ def test_launch_args_refuses_what_no_block_holds():
     tlc.launch_args(29_056, F32, 1, "meta")
     with pytest.raises(ValueError):
         tlc.launch_args(29_057, F32, 1, "meta")
+
+
+# the f64 cluster body (csrc/cluster_cholesky.cuh): one thread-block
+# cluster per system for f64 systems one block would stream
+# rank r keeps block-columns r and r + 16 of 24: 24 - r + max(8 - r, 0)
+# tiles, then the panel buffer (23 tiles and 16 entries), one tile and two
+# 384-entry vectors
+_RANKS16 = tuple(8 * (t * 256 + 23 * 256 + 16 + 256 + 2 * 384)
+                 for t in (32, 30, 28, 26, 24, 22, 20, 18, 16, 15, 14, 13,
+                           12, 11, 10, 9))
+
+
+@pytest.mark.parametrize("B,n,want", [
+    # the solver's full (222 + F)-dim system, F = 160: 24 block-columns
+    # over 16 ranks, rank 0 keeping columns 0 and 16 (24 + 8 tiles)
+    (1, 382, (16, 384, 16, _RANKS16, 120_960, 2 * (23 * 256 + 16))),
+    (8, 382, (16, 384, 16, _RANKS16, 120_960, 2 * (23 * 256 + 16))),
+])
+def test_solve_plan_pins_the_cluster_layout(B, n, want):
+    assert tuple(tlc.solve_plan(n, F64, B)) == want
+
+
+@pytest.mark.parametrize("B,n,dtype", [
+    (1, 222, F64), (128, 222, F64), (128, 222, F32), (128, 382, F32),
+    (1, 382, F32), (128, 382, F64), (1, 224, F64)])
+def test_solve_plan_keeps_the_one_block_plans(B, n, dtype):
+    """f64 systems resident in one block, f32 systems, and f64 batches too
+    large for the card's SMs at once stay on the one-block body."""
+    assert tlc.solve_plan(n, dtype, B) == tlc.tile_plan(n, dtype)
+
+
+def test_cluster_batch_rule():
+    """A batch goes to the cluster body when its clusters fit the card at
+    once (B * cluster <= 132 SMs), with the first of CLUSTER_SIZES that
+    does: 16 blocks up to B = 8, 8 up to 16, 4 up to 33."""
+    sizes = {}
+    for B in range(1, 40):
+        p = tlc.solve_plan(382, F64, B)
+        sizes[B] = p.cluster if isinstance(p, tlc.ClusterPlan) else None
+        if sizes[B]:
+            assert B * p.cluster <= tlc.SM_COUNT
+    assert {B for B, c in sizes.items() if c == 16} == set(range(1, 9))
+    assert {B for B, c in sizes.items() if c == 8} == set(range(9, 17))
+    assert {B for B, c in sizes.items() if c == 4} == set(range(17, 34))
+    assert {B for B, c in sizes.items() if c is None} == set(range(34, 40))
+
+
+@pytest.mark.parametrize("cluster", [4, 8, 16])
+def test_cluster_tiles_cover_the_triangle_once(cluster):
+    """Every tile of the triangle lives in exactly one rank, block-column J
+    in rank J % cluster, each column from its diagonal tile down at the
+    offset csrc/cluster_cholesky.cuh::column_offset computes; every rank's
+    bytes fit a block's shared memory wherever the plan routes here."""
+    nb = tlc.CLUSTER_NB
+    for n in range(225, 641, 7):
+        nt = -(-n // nb)
+        seen = []
+        for r in range(cluster):
+            tiles = tlc.cluster_tiles(nt, cluster, r)
+            assert all(J % cluster == r for _, J in tiles)
+            for j, J in enumerate(range(r, nt, cluster)):
+                assert tiles.index((J, J)) == j * (nt - r) \
+                    - cluster * j * (j - 1) // 2
+            seen += tiles
+        assert sorted(seen) == sorted((I, J) for J in range(nt)
+                                      for I in range(J, nt))
+        p = tlc.cluster_plan(n, cluster)
+        assert p.smem_bytes == max(p.rank_bytes) == p.rank_bytes[0]
+        if tlc.solve_plan(n, F64, 1) == p:
+            assert p.smem_bytes <= tlc.SMEM_LIMIT
+
+
+def test_every_routed_n_fits():
+    """Every f64 n the plan sends to the cluster body, at B = 1 and 33,
+    fits: each rank's bytes within a block's shared memory."""
+    routed = 0
+    for n in range(1, 1001):
+        for B in (1, 33):
+            p = tlc.solve_plan(n, F64, B)
+            if isinstance(p, tlc.ClusterPlan):
+                routed += 1
+                assert n > 224 and B * p.cluster <= tlc.SM_COUNT
+                assert all(b <= tlc.SMEM_LIMIT for b in p.rank_bytes)
+                assert p.n_pad % p.nb == 0 and n <= p.n_pad < n + p.nb
+    assert routed > 500

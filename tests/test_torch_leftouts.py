@@ -198,13 +198,21 @@ def test_il_residual_matches_jax_and_golden(ct):
 # ------------------------------------------------- the window
 
 @pytest.fixture(scope="module")
-def window():
-    """tests/test_structured.py's window at a perturbed state, with the
-    prior of marginalize_old at the truth (its ..._with_prior case)."""
+def built_window():
+    """tests/test_structured.py's window: (data, truth), built once for
+    both fixtures below."""
     sim = simulate(SimConfig(duration=5.0, speed=0.5, seed=3,
                              n_landmarks=150))
     data, truth, _ = build_window_from_sim(sim, jConfig(), kf_stride=2,
                                            start_cam=2, F=40)
+    return data, truth
+
+
+@pytest.fixture(scope="module")
+def window(built_window):
+    """tests/test_structured.py's window at a perturbed state, with the
+    prior of marginalize_old at the truth (its ..._with_prior case)."""
+    data, truth = built_window
     pj, pr, _ = jax.jit(jmarg.marginalize_old)(truth, data)
     data = data._replace(prior_J=pj, prior_r=pr,
                          prior_valid=jnp.asarray(True), prior_lin=truth)
@@ -230,13 +238,10 @@ def test_build_normal_equations_matches_jax(window):
 
 
 @pytest.fixture(scope="module")
-def window_at_truth():
+def window_at_truth(built_window):
     """tests/test_structured.py's window at the truth, without a prior (its
     test_H_b_match_dense case)."""
-    sim = simulate(SimConfig(duration=5.0, speed=0.5, seed=3,
-                             n_landmarks=150))
-    data, truth, _ = build_window_from_sim(sim, jConfig(), kf_stride=2,
-                                           start_cam=2, F=40)
+    data, truth = built_window
     return truth, data, to_port(truth, data)
 
 

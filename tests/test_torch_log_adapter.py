@@ -119,11 +119,15 @@ def _write(mod, out, sim):
 
 
 @pytest.fixture(scope="module")
-def dataset(tmp_path_factory):
+def sim16():
+    return simulate(SimConfig(duration=1.6, speed=0.5, seed=5))
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory, sim16):
     root = tmp_path_factory.mktemp("logged")
-    sim = simulate(SimConfig(duration=1.6, speed=0.5, seed=5))
-    _write(tla, str(root / "port"), sim)
-    _write(jla, str(root / "jax"), sim)
+    _write(tla, str(root / "port"), sim16)
+    _write(jla, str(root / "jax"), sim16)
     return root
 
 
@@ -148,13 +152,13 @@ def replays(dataset):
     return ds, outs["jax"], outs["port"]
 
 
-def test_write_and_load_dataset_match_jax(dataset):
+def test_write_and_load_dataset_match_jax(dataset, sim16):
     """The files: meta.json byte-equal; imu_leg.csv and mocap.csv parsed
     equal but for their t column, which the port writes at 1e-9 s ("%.9f",
     as cam.csv) and the JAX package at 9 significant digits ("%.9g"): the
     port's t is held to the simulator's stamps within 1e-9 s. Then every
     loaded array equal (at these stamps both formats parse alike)."""
-    sim = simulate(SimConfig(duration=1.6, speed=0.5, seed=5))
+    sim = sim16
     stamps = {"imu_leg.csv": sim["t"], "mocap.csv": sim["t"][::5]}
     assert filecmp.cmp(dataset / "port" / "meta.json",
                        dataset / "jax" / "meta.json", shallow=False)

@@ -378,15 +378,25 @@ def test_streaming_step_placeholder_interval(step_inputs):
 
 # ----------------------------------------------------------- the replay
 
-def test_replay_matches_jax(sim, port_run):
+@pytest.fixture(scope="module")
+def jax_run(sim):
+    """The JAX package's replay of the same 14 frames, with the keyframes
+    its estimator hands the loop back-end (keyframe_callback) recorded:
+    (replay dict, keyframes)."""
+    keyframes = []
+    est = jest.Estimator(dataclasses.replace(jConfig(), **KW),
+                         use_native=False)
+    est.keyframe_callback = lambda *kf: keyframes.append(kf)
+    return jreplay(sim, est=est, max_frames=FRAMES), keyframes
+
+
+def test_replay_matches_jax(port_run, jax_run):
     """The short replay frame by frame: same frames published, positions
     within 1e-8 m, equal counts of solves, keyframes, reboots and
     dispatches. Two of its 14 frames are not keyframes, so both slides
     (MARGIN_OLD and MARGIN_SECOND_NEW with the 8+9 splice) run."""
     tout, _ = port_run
-    est = jest.Estimator(dataclasses.replace(jConfig(), **KW),
-                         use_native=False)
-    jout = jreplay(sim, est=est, max_frames=FRAMES)
+    jout, _ = jax_run
     np.testing.assert_array_equal(tout["est_t"], jout["est_t"])
     assert len(tout["est_t"]) >= 3
     assert_close("replay.est_p", tout["est_p"], jout["est_p"], 0, 1e-8)
@@ -399,7 +409,7 @@ def test_replay_matches_jax(sim, port_run):
                  1e-8)
 
 
-def test_keyframe_stream_matches_jax(sim, port_run):
+def test_keyframe_stream_matches_jax(port_run, jax_run):
     """The keyframes the estimator hands the loop back-end
     (keyframe_callback, on every MARGIN_OLD slide) in the short replay:
     the same keyframes, each with equal t, feature ids and which features
@@ -407,11 +417,7 @@ def test_keyframe_stream_matches_jax(sim, port_run):
     points within 1e-8."""
     _, rec = port_run
     got = rec["keyframes"]
-    want = []
-    est = jest.Estimator(dataclasses.replace(jConfig(), **KW),
-                         use_native=False)
-    est.keyframe_callback = lambda *kf: want.append(kf)
-    jreplay(sim, est=est, max_frames=FRAMES)
+    _, want = jax_run
     assert len(got) == len(want) >= 1
     worst = {"p": 0.0, "q": 0.0, "uv": 0.0, "world": 0.0}
     for (t1, p1, q1, ids1, obs1), (t2, p2, q2, ids2, obs2) in zip(got, want):
