@@ -111,6 +111,16 @@ Phases, each printed with its elapsed seconds:
      solve of it iterations, none in no_chol, the stages and the tracker);
      profile_inloop's full variant on 2 windows and bench_klt's tracks of
      2 streams against the CPU;
+ 12c. diagnostics, after 12b and while the children run: the port's
+     `evals/diag_simcheck.py`, `diag_rho.py` (F = 160, 30 LM iterations:
+     the f64 kernel at (1, 222) once an iteration, exactly),
+     `diag_ekf_slip.py`, `diag_ekf_slip2.py`, `diag_tracker.py` (90
+     frames, both trackers) and `diag_loop.py` through their functions on
+     the card at DIAG_SIZES, launches counted per call, each held to the
+     JAX package's numbers at the same sizes (JAX_DIAGNOSTICS: counts
+     equal, f64 numbers within 1e-6 relative, the trackers' errors within
+     0.05 px); the five streaming diagnostics run in the `estimator
+     branches` child (13c);
  13. run configs, in a process of its own (below): `python -m
      cerberus_tpu_torch.evals.run_configs --configs C --duration 2`
      in-process for C = 1..6 (the legged EKF alone; IMU + leg; full VILO;
@@ -148,13 +158,19 @@ Phases, each printed with its elapsed seconds:
      ATE at most 2x its (in a run with a step on a placeholder interval:
      that step where the JAX package's came, and the frames before it),
      td nearer 0 and within 2 ms of its, mono in mono, stale IMU intervals
-     as its;
+     as its; then, in the `estimator branches` process, the streaming
+     diagnostics (`diag_vision.py`'s 20-frame feed with vision on, analysed
+     by it, `diag_obs.py` and `diag_proj.py`, then with vision off;
+     `diag_ex.py`'s three variants at 14 frames; `diag_dropout.py` at 3 s),
+     the f64 kernel once per LM iteration of every solve, held to
+     JAX_DIAGNOSTICS as 12c (diag_dropout up to its first step on a
+     placeholder interval);
 
 Phases 13, 13b, 13c and 14 are host-bound with the card idle most of the
 time, and each takes minutes: each runs in a child process (CHILDREN)
 started after the build, which makes no launch until the kernels phase has
-ended (the long run prerenders meanwhile), beside phases 4-12b; their
-output is printed when they are collected, after phase 12b.
+ended (the long run prerenders meanwhile), beside phases 4-12c; their
+output is printed when they are collected, after phase 12c.
 
 Ends with a line of each kernel's launches per path, the card's name and
 power limit, a JSON line of the kernels' numbers, then the result line
@@ -334,6 +350,34 @@ ROBUSTNESS_CHILDREN = {
     "estimator branches": ("mono_swap", "imu_off_on", "vision_only",
                            "pnp_recovery", "reboot")}
 TD_GATE_MS = 2.0   # final td within this of the JAX package's
+# `diagnostics`: the port's eleven `evals/diag_*.py` on the card through
+# their functions, at these sizes (each beside the JAX script's own):
+#   diag_simcheck, diag_rho (F = 160, 30 LM iterations), diag_tracker
+#     (90 frames): the JAX scripts' sizes;
+#   diag_proj, diag_obs, diag_vision: their 20 frames of the 3 s sequence,
+#     one feed (vision on, debug on) analysed by all three, then vision off;
+#   diag_ex: DIAG_FRAMES=14 of its 8 s sequence (JAX: every frame, 120);
+#   diag_dropout: 3 s (JAX: 60 s; the shortest run whose two IMU windows
+#     both begin after initialization);
+#   diag_ekf_slip / diag_ekf_slip2: 0.6 s = 300 samples of each
+#     simulation (JAX: 60 s), one variant each (JAX: 6 each);
+#   diag_loop: long run loop's figure-eight, 1.0 m/s for 28 s, seed 77
+#     (JAX: the street circuit, 0.75 m/s for 180 s, seed 77: simulating it
+#     and rendering its 2,700 stereo pairs takes ~5 min of one core, more
+#     than the main process has before the long run ends)
+# The five streaming ones run in the `estimator branches` child after its
+# runs, the rest in the main process after `measurement drivers`.
+DIAG_SIZES = {
+    "diag_simcheck": {}, "diag_rho": {}, "diag_tracker": {"max_frames": 90},
+    "diag_vision": {"DIAG_DUR": "3.0", "DIAG_FRAMES": "20"},
+    "diag_ex": {"DIAG_DUR": "8.0", "DIAG_FRAMES": "14"},
+    "diag_dropout": {"duration": 3.0},
+    "diag_ekf_slip": {"duration": 0.6, "EKF_VARIANTS": "gate11_var25"},
+    "diag_ekf_slip2": {"duration": 0.6, "variant": "fw0.001_vn0.1"},
+    "diag_loop": {"path": "figure8", "speed": 1.0, "duration": 28.0,
+                  "seed": 77}}
+DIAG_REL = 1e-6      # f64 diagnostics' numbers vs the JAX package's, relative
+DIAG_TRACK_PX = 0.05  # the trackers' error p50 / p90 vs the JAX package's
 # the JAX package's numbers on the same runs (`python3
 # tools/jax_robustness.py --duration 3`: JAX on the CPU, f64, the default
 # EstimatorConfig; unrounded drift % and ATE, reboots, final td in ms,
@@ -393,6 +437,261 @@ JAX_ROBUSTNESS = {
         placeholder_at=None),
     'reboot': dict(drift_pct=23.08712558069847, ate_rmse=0.16856662300746816,
         reboots=1, stale_imu_intervals=0, placeholder_at=None),
+}
+# the JAX package's numbers at DIAG_SIZES (`python3
+# tools/jax_diagnostics.py`, JAX on the CPU, f64, then `--digest`: each
+# result's diag_digest, unrounded); diag_dropout's only up to its first
+# adopted step on a placeholder interval (`_` keys: reported, not held)
+JAX_DIAGNOSTICS = {
+    'diag_simcheck':
+        {'p_err': [2.193168531434215e-05, 5.280561752838686e-05,
+                   0.00010125658253964564],
+         'v_err': [2.1735572443886324e-05, 4.313199346805085e-05,
+                   6.430739295976617e-05],
+         'q_err': [7.100563634469333e-06, 7.109981804470286e-06,
+                   7.1193915959350686e-06],
+         'max_q_err': 7.1193915959350686e-06,
+         'leg_med': 3.595552130076124e-05,
+         'leg_p90': 0.003881836203151709,
+         'leg_max': 0.005950701044109361,
+         'leg_n': 96},
+    'diag_rho':
+        {'J_col': [0.13570508249482885, -0.011253091226625106,
+                   0.15862052491361006, 0.1848313219476181,
+                   -0.014924945337170181, 0.20184840069869078,
+                   0.1281148846154681, -0.02023774782025961,
+                   0.14319894319681403, 0.10948397421430091,
+                   -0.028482315436497353, 0.12471842629718195],
+         'fd': [0.13570508249627355, -0.011253091226730292, 0.15862052491280587,
+                0.18483132195046267, -0.014924945337425886, 0.20184840069711188,
+                0.1281148846177249, -0.02023774782035706, 0.14319894319997448,
+                0.10948397421162158, -0.02848231543651179,
+                0.12471842629757644],
+         'deps_nom': [0.10291900606918504, -0.0025086854170235182,
+                      -0.06090034625152343, 0.07222059858658905,
+                      -0.0028163132789882066, -0.0016924796241373195,
+                      0.0762319815352458, 0.0033242944875995837,
+                      -0.0013028328876919194, 0.09785837925362448,
+                      0.0036791118954346102, -0.06062996422313454],
+         'deps_true': [0.10359753148165919, -0.002564950873156644,
+                       -0.060107243626955374, 0.07314475519632717,
+                       -0.002890938005674058, -0.0006832376206438522,
+                       0.07687255595832314, 0.003223105748498286,
+                       -0.0005868381717077965, 0.09840579912469602,
+                       0.0035367003182521246, -0.060006372091648615],
+         'truth': [0.199981472907602, 0.002499869794378995,
+                   0.0021460938542303214],
+         'cost0': 6975.890402058822,
+         'cost': 501.58251342524807,
+         'accepted': 30,
+         'rho_frame5': [0.2099966053522448, 0.21226464279210328,
+                        0.21322727228032742, 0.2099965646100941],
+         'pos_err': [0.006658835893774586, 0.007332439676232777,
+                     0.00733992490426528, 0.007272644008775308,
+                     0.00854948926633093, 0.009438449545629,
+                     0.010423740845650654, 0.011042186432921042,
+                     0.011414202012696608, 0.012043559594113233,
+                     0.012315694535893831]},
+    'diag_proj':
+        {'a_cost': 508.1791621280566,
+         'a_n_rows': 4450,
+         'a_rms_px': 0.7168605445651299,
+         'b_total': 443.4743555274906,
+         'b_n_features': 108,
+         'b_worst_slots': [69, 13, 57, 29, 72, 14, 17, 64, 74, 10, 60, 56],
+         'b_worst_cost': [11.878594450000865, 11.737326011753831,
+                          11.06855831093458, 10.221841514593608,
+                          9.340212765847838, 9.323459870098194,
+                          8.682132926208514, 8.356001444938356,
+                          8.297422341189701, 7.939286461436541,
+                          7.256609821761528, 6.7531399438347535],
+         'b_worst_d_tru': [0.15795112295628252, 0.17879798229639227,
+                           0.7582585890532701, 0.46614287872686355,
+                           0.4149625434478363, 0.5587265273067062,
+                           0.14577275084644264, 0.199896502947429,
+                           0.18120625949805633, 0.17464539046315677,
+                           0.18330646244436527, 0.22633159462964111],
+         'b_anchor_n': {'0': 104, '1': 1, '2': 1, '5': 1, '6': 1},
+         'b_rms_mono': 0.6896388284952701,
+         'b_rms_stereo': 0.705600668782574},
+    'diag_obs':
+        {'checked': 1096,
+         'bad': [],
+         'headers': [0.528, 0.594, 0.66, 0.726, 0.792, 0.858, 0.924, 0.99,
+                     1.122, 1.188, 1.254],
+         'keyframes': 16},
+    'diag_vision':
+        {'on_t': [0.66, 0.726, 0.792, 0.858, 0.924, 0.99, 1.056, 1.122, 1.188,
+                  1.254],
+         'on_accepted': [1, 1, 12, 12, 12, 4, 12, 12, 12, 12],
+         'on_newest_err': [0.2990215751692713, 0.29839337257301746,
+                           0.2984894634606607, 0.29794420474878086,
+                           0.29810192262081125, 0.29761963558763693,
+                           0.29819950180047267, 0.29762938919627435,
+                           0.2973685982398139, 0.29688107888240156],
+         'on_mean_err': [0.29967372829158845, 0.29961661896465636,
+                         0.2995552639350778, 0.2992392369253039,
+                         0.2992516702178509, 0.2988949255894362,
+                         0.29912288989396923, 0.29902667279659456,
+                         0.2987948351484491, 0.29847854528914913],
+         'on_cost_drop': [1.600694588432816e-06, 1.600694588432816e-06,
+                          178.35535544719312, 158.6176327418613,
+                          160.8523306708414, 140.67390473305397,
+                          151.29461197131423, 140.52643123918108,
+                          166.80120390552088, 4.508286080316964],
+         'on_entry_ileg_proj': [[4.7, 609.2], [4.5, 571.8], [4.1, 562.2],
+                                [4.0, 568.5], [4.2, 581.1], [4.0, 597.7],
+                                [3.3, 602.9], [3.9, 433.7], [4.3, 510.9]],
+         'on_rho': [0.21, 0.21, 0.21, 0.21, 0.21, 0.21, 0.21, 0.21, 0.2096,
+                    0.2101, 0.21, 0.2103, 0.2092, 0.2103, 0.21, 0.2105, 0.209,
+                    0.2105, 0.21, 0.2105, 0.209, 0.2105, 0.21, 0.2105, 0.2088,
+                    0.2108, 0.21, 0.2105, 0.2086, 0.211, 0.21, 0.2105, 0.2085,
+                    0.2111, 0.21, 0.2104, 0.2083, 0.2113, 0.21, 0.2104],
+         'on_bg': [0.0023, -0.0011, 0.0015, 0.0023, -0.0011, 0.0015, 0.0023,
+                   -0.0009, 0.0017, 0.0024, -0.0012, 0.0016, 0.0026, -0.0012,
+                   0.002, 0.0026, -0.0012, 0.002, 0.0023, -0.0012, 0.0018,
+                   0.002, -0.0012, 0.0015, 0.0018, -0.0014, 0.0017, 0.002,
+                   -0.0016, 0.0017],
+         'on_ex_deg': [0.0, 0.0, 0.172, 0.166, 0.162, 0.147, 0.096, 0.157,
+                       0.169, 0.173],
+         'on_ex_dt': [0.0, 0.0, 0.0046, 0.0045, 0.0073, 0.0093, 0.0079, 0.0087,
+                      0.0092, 0.0093],
+         'on_n_depths': [119, 121, 121, 118, 117, 114, 113, 111, 111, 108],
+         'on_depth_err_med': [0.14278249842966861, 0.14278249842966861,
+                              0.132326170783859, 0.11683702641571125,
+                              0.11024885199127965, 0.11429328325407595,
+                              0.12861503254606443, 0.13035281297978774,
+                              0.14133679321739834, 0.14485601425834593],
+         'off_t': [0.66, 0.726, 0.792, 0.858, 0.924, 0.99, 1.056, 1.122, 1.188,
+                   1.254],
+         'off_accepted': [2, 2, 12, 1, 12, 12, 12, 1, 12, 12],
+         'off_newest_err': [0.29911792304416324, 0.29859554927264886,
+                            0.2984901302326398, 0.2977705471829215,
+                            0.2975248814618947, 0.2971657136142313,
+                            0.2970332558859962, 0.29621801163094935,
+                            0.29679466907904073, 0.296814974316777],
+         'off_mean_err': [0.29956614134644244, 0.2995186528217593,
+                          0.2993665888161527, 0.29916035353455667,
+                          0.2987813188901412, 0.29857422611712076,
+                          0.29840149807588967, 0.29812001923408543,
+                          0.2980934236509915, 0.29797226282029715],
+         'off_cost_drop': [3.932774433379471e-05, 3.932774433379471e-05,
+                           0.4174214125622209, 1.9379947602260472e-06,
+                           3.834965813801056, 0.2080307617754764,
+                           0.3461533370118479, 1.904354319126611e-06,
+                           2.4271748871493104, 0.41271922255238325],
+         'off_entry_ileg_proj': [[1.9, 0.0], [2.0, 0.0], [1.9, 0.0], [2.2, 0.0],
+                                 [2.2, 0.0], [1.9, 0.0], [1.5, 0.0], [1.9, 0.0],
+                                 [2.3, 0.0]],
+         'off_rho': [0.21, 0.21, 0.21, 0.21, 0.21, 0.21, 0.21, 0.21, 0.2098,
+                     0.2101, 0.21, 0.21, 0.2098, 0.2101, 0.21, 0.21, 0.2097,
+                     0.2102, 0.21, 0.21, 0.2096, 0.2103, 0.21, 0.2099, 0.2095,
+                     0.2105, 0.21, 0.2099, 0.2095, 0.2105, 0.21, 0.2099, 0.2094,
+                     0.2106, 0.2101, 0.2099, 0.2093, 0.2106, 0.2101, 0.2098],
+         'off_bg': [0.0013, -0.0039, 0.0155, 0.0013, -0.0039, 0.0155, 0.0012,
+                    -0.0039, 0.0155, 0.0012, -0.0039, 0.0155, 0.0012, -0.0012,
+                    0.0149, 0.0013, 0.0002, 0.0144, 0.0018, 0.0006, 0.0135,
+                    0.0018, 0.0006, 0.0135, 0.004, 0.0001, 0.0116, 0.0044,
+                    -0.0004, 0.0098],
+         'off_ex_deg': [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+         'off_ex_dt': [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+         'est_ileg': 4.855218896947997,
+         'est_proj': 510.9469493586922,
+         'tru_ileg': 7.331024921799353,
+         'tru_proj': 443.4743555274911,
+         'cost_est_less_tru': 43.26453397762907,
+         'prior_est_less_tru': -14.563255492927187},
+    'diag_ex':
+        {'ex=True,vision=True ate': 0.0007206219068110643,
+         'ex=True,vision=True drift_pct': 1.0390904677133732,
+         'ex=True,vision=True dist': 0.09955743965030953,
+         'ex=True,vision=True dtic': [0.003598659417245902,
+                                      0.00451262552611271],
+         'ex=True,vision=True dang_deg': [0.11330533849170964,
+                                          0.10020296153939313],
+         'ex=True,vision=True keyframes': 12,
+         'ex=True,vision=True inv_depths': [0.17086464523890854,
+                                            0.06104392121723233,
+                                            0.811583343081235],
+         'ex=True,vision=True inv_n': 157,
+         'ex=False,vision=True ate': 0.0008337915785724177,
+         'ex=False,vision=True drift_pct': 1.3443361152574718,
+         'ex=False,vision=True dist': 0.09955743965030953,
+         'ex=False,vision=True dtic': [0.0, 0.0],
+         'ex=False,vision=True dang_deg': [0.0, 0.0],
+         'ex=False,vision=True keyframes': 12,
+         'ex=False,vision=True inv_depths': [0.17049758582672012,
+                                             0.06342906428392373,
+                                             0.8106291008901795],
+         'ex=False,vision=True inv_n': 157,
+         'ex=True,vision=False ate': 0.0010268223102216391,
+         'ex=True,vision=False drift_pct': 1.7448019709322937,
+         'ex=True,vision=False dist': 0.09955743965030953,
+         'ex=True,vision=False dtic': [0.0, 0.0],
+         'ex=True,vision=False dang_deg': [0.0, 0.0],
+         'ex=True,vision=False keyframes': 14,
+         'ex=True,vision=False inv_depths': None,
+         'ex=True,vision=False inv_n': None},
+    'diag_dropout':
+        {'reboots': 0,
+         'stale_intervals': 28,
+         'placeholder_at': 0.99,
+         'failure_reasons_before': [],
+         'err_before': [0.0, 0.0010532648605160579, 0.0, 0.0010532648605160579],
+         'before_frames': 5,
+         'before_drift_pct': 0.9913933078816961,
+         'before_ate': 0.0008448972262636574,
+         '_drift_pct': 61.28393580546801,
+         '_ate': 0.547489970109644,
+         '_failure_reasons': []},
+    'diag_ekf_slip':
+        {'samples': 300,
+         'gate11_var25 slip drift_pct': 0.45337806028398847,
+         'gate11_var25 slip ate_rmse': 0.00515002436920191,
+         'gate11_var25 slip distance': 0.23839999990066668,
+         'gate11_var25 slip final_err': 0.001080853295266673,
+         'gate11_var25 clean drift_pct': 0.8613791100869176,
+         'gate11_var25 clean ate_rmse': 0.005043445411101788,
+         'gate11_var25 clean distance': 0.23839999990066668,
+         'gate11_var25 clean final_err': 0.002053527797591575},
+    'diag_ekf_slip2':
+        {'samples': 300,
+         'fw0.001_vn0.1 slip drift_pct': 1.7279780248833227,
+         'fw0.001_vn0.1 slip ate_rmse': 0.0032921982977711095,
+         'fw0.001_vn0.1 slip distance': 0.23839999990066668,
+         'fw0.001_vn0.1 slip final_err': 0.004119499609605384,
+         'fw0.001_vn0.1 clean drift_pct': 2.110343085768047,
+         'fw0.001_vn0.1 clean ate_rmse': 0.0036007332028379223,
+         'fw0.001_vn0.1 clean distance': 0.23839999990066668,
+         'fw0.001_vn0.1 clean final_err': 0.00503105791437475},
+    'diag_tracker':
+        {'frames': 90,
+         'cv err_p50': 1.701189406771681,
+         'cv err_p90': 9.972601059882926,
+         '_cv n_feat_p50': 120.0,
+         '_cv len_p50': 11.0,
+         '_cv births': 468,
+         'device err_p50': 1.4724918768554993,
+         'device err_p90': 9.604263812837138,
+         '_device n_feat_p50': 93.5,
+         '_device len_p50': 4.0,
+         '_device births': 749},
+    'diag_loop':
+        {'keyframes': 104,
+         'skipped': 316,
+         'cand': 1,
+         'few_matches': 0,
+         'few_world': 0,
+         'pnp_fail': 1,
+         'pnp_ok': 7,
+         'loops_found': 7,
+         'n_loop_edges': 7,
+         'match_p50': 39.0,
+         'match_p90': 51.9,
+         'world_p50': 39.0,
+         'world_p90': 51.9,
+         'best_sim': 0.865774929523468,
+         'pnp_err_p50': 0.0016982652068665586},
 }
 
 # kernel rows: (name, dtype) -> what the JSON line says of it
@@ -2529,12 +2828,16 @@ def run_configs_child():
 
 def robustness_child(name):
     """ROBUSTNESS_CHILDREN[name] (robustness) in a process of its own
-    (start_child), once the parent releases it: its phase lines, then its
-    launches per run and numbers as one JSON line."""
+    (start_child), once the parent releases it, and after `estimator
+    branches` the streaming diagnostics (diagnostics_streaming): its phase
+    lines, then its launches per run and numbers as one JSON line."""
     sys.stdin.readline()
     dev = _child_setup()
     torch.set_num_threads(1)   # host-bound Python; the card does the work
     launches, nums = robustness(dev, name)
+    if name == "estimator branches":
+        diag_launches, nums["diagnostics"] = diagnostics_streaming(dev)
+        launches.update(diag_launches)
     print(json.dumps({"launches": launches, "numbers": nums}), flush=True)
 
 
@@ -2747,6 +3050,389 @@ def robustness(dev, name):
     if failed:
         raise AssertionError(f"{name} gates: {failed}")
     return launches, results
+
+
+# the diagnostics (`diagnostics`): the port's eleven `evals/diag_*.py` on
+# the card, held to the JAX package's numbers at the same sizes
+# (JAX_DIAGNOSTICS, from tools/jax_diagnostics.py) through diag_digest
+
+
+def _rows(rows, key):
+    return [float(r[key]) for r in rows]
+
+
+def diag_digest(name, res):
+    """The numbers of diagnostic `name`'s result (the port's, or the JAX
+    package's from tools/jax_diagnostics.py, as JSON) that the gates hold:
+    {key: value}. Ints, strings and lists of them are held equal; floats
+    and lists of floats within DIAG_REL of the largest |JAX value| of the
+    key, or within DIAG_ABS[key]; keys beginning with `_` are reported
+    only."""
+    res = json.loads(json.dumps(res, default=lambda x: x.tolist()
+                                if hasattr(x, "tolist") else str(x)))
+    d = {}
+    if name == "diag_simcheck":
+        rows = res["dead_reckoning"]
+        for k in ("p_err", "v_err", "q_err"):
+            d[k] = _rows(rows, k)
+        d["max_q_err"] = res["max_q_err"]
+        leg = res["leg_odom_vel_err"]
+        d.update(leg_med=leg["med"], leg_p90=leg["p90"], leg_max=leg["max"],
+                 leg_n=leg["n"])
+    elif name == "diag_rho":
+        fd, sol = res["fd_check"], res["window_solve"]
+        for k in ("J_col", "fd", "deps_nom", "deps_true", "truth"):
+            d[k] = np.ravel(fd[k]).tolist()
+        d.update(cost0=sol["cost0"], cost=sol["cost"],
+                 accepted=sol["accepted"], rho_frame5=sol["rho_frame5"],
+                 pos_err=sol["pos_err"])
+    elif name == "diag_proj":
+        a, b = res["perfect_assoc"], res["final_window"]
+        d.update(a_cost=a["cost"], a_n_rows=a["n_rows"], a_rms_px=a["rms_px"],
+                 b_total=b["total"], b_n_features=b["n_features"],
+                 b_worst_slots=[w["slot"] for w in b["worst"]],
+                 b_worst_cost=[w["cost"] for w in b["worst"]],
+                 b_worst_d_tru=[w["d_tru"] for w in b["worst"]],
+                 b_anchor_n={k: v["n"] for k, v in b["anchors"].items()},
+                 b_rms_mono=b["rms_mono_px"], b_rms_stereo=b["rms_stereo_px"])
+    elif name == "diag_obs":
+        d.update(checked=res["checked"],
+                 bad=[list(b[:3]) for b in res["bad"]],
+                 headers=res["headers"], keyframes=res["keyframes"])
+    elif name == "diag_vision":
+        for tag in ("on", "off"):
+            rows = res[f"vision_{tag}"]
+            d[f"{tag}_t"] = _rows(rows, "t")
+            d[f"{tag}_accepted"] = [r["accepted"] for r in rows]
+            for k in ("newest_err", "mean_err"):
+                d[f"{tag}_{k}"] = _rows(rows, k)
+            # a cost with a marginalization prior carries each package's
+            # QR constant: the drops are held
+            d[f"{tag}_cost_drop"] = [r["cost0"] - r["cost"] for r in rows]
+            d[f"{tag}_entry_ileg_proj"] = [list(r["entry"][:2])
+                                           for r in rows if "entry" in r]
+            for k in ("rho", "bg", "ex_deg", "ex_dt"):
+                d[f"{tag}_{k}"] = np.ravel([r[k] for r in rows]).tolist()
+            if tag == "on":
+                d["on_n_depths"] = [r["n_depths"] for r in rows]
+                d["on_depth_err_med"] = _rows(rows, "depth_err_med")
+        ce, ct = res["cost_est"], res["cost_tru"]
+        d.update(est_ileg=ce["ileg"], est_proj=ce["proj"],
+                 tru_ileg=ct["ileg"], tru_proj=ct["proj"],
+                 cost_est_less_tru=ce["cost"] - ct["cost"],
+                 prior_est_less_tru=ce["prior"] - ct["prior"])
+    elif name == "diag_ex":
+        for v, r in res.items():
+            if not v.startswith("ex="):
+                continue
+            d.update({f"{v} {k}": r[k] for k in (
+                "ate", "drift_pct", "dist", "dtic", "dang_deg",
+                "keyframes")})
+            inv = r["inv_depths"]
+            d[f"{v} inv_depths"] = None if inv is None else \
+                [inv["med"], inv["min"], inv["max"]]
+            d[f"{v} inv_n"] = None if inv is None else inv["n"]
+    elif name == "diag_dropout":
+        cut = res["placeholder_at"]
+        cut = np.inf if cut is None else cut
+        d.update(reboots=res["reboots"],
+                 stale_intervals=res["stale_intervals"],
+                 placeholder_at=res["placeholder_at"],
+                 failure_reasons_before=[list(f) for f in
+                                         res["failure_reasons"]
+                                         if f[0] < cut])
+        d["err_before"] = [e for rows in res["err_around"].values()
+                           for t, e in rows if t < cut]
+        b = res.get("before_placeholder")
+        if b is not None:
+            d.update(before_frames=b["frames"],
+                     before_drift_pct=b["drift_pct"],
+                     before_ate=b["ate_rmse"])
+        # past the placeholder step: roundoff in either package
+        d.update(_drift_pct=res["drift_pct"], _ate=res["ate"],
+                 _failure_reasons=res["failure_reasons"])
+    elif name in ("diag_ekf_slip", "diag_ekf_slip2"):
+        d["samples"] = res["samples"]
+        for v, r in res.items():
+            if isinstance(r, dict):
+                for sim in ("slip", "clean"):
+                    for k in ("drift_pct", "ate_rmse", "distance",
+                              "final_err"):
+                        d[f"{v} {sim} {k}"] = r[sim][k]
+    elif name == "diag_tracker":
+        d["frames"] = res["frames"]
+        for tr in ("cv", "device"):
+            r = res[tr]
+            d.update({f"{tr} err_p50": r["err_p50"],
+                      f"{tr} err_p90": r["err_p90"],
+                      f"_{tr} n_feat_p50": r["n_feat_p50"],
+                      f"_{tr} len_p50": r["len_p50"],
+                      f"_{tr} births": r["births"]})
+    elif name == "diag_loop":
+        d.update({k: res[k] for k in (
+            "keyframes", "skipped", "cand", "few_matches", "few_world",
+            "pnp_fail", "pnp_ok", "loops_found", "n_loop_edges",
+            "match_p50", "match_p90", "world_p50", "world_p90", "best_sim",
+            "pnp_err_p50")})
+    else:
+        raise ValueError(name)
+    return d
+
+
+# absolute tolerances of digest keys: the tracker errors (px), and the
+# diag_vision rows' fields the script rounds (one unit of its rounding)
+DIAG_ABS = {"cv err_p50": DIAG_TRACK_PX, "cv err_p90": DIAG_TRACK_PX,
+            "device err_p50": DIAG_TRACK_PX,
+            "device err_p90": DIAG_TRACK_PX,
+            **{f"{tag}_{k}": tol for tag in ("on", "off")
+               for k, tol in (("rho", 1e-4), ("bg", 1e-4), ("ex_deg", 1e-3),
+                              ("ex_dt", 1e-4), ("entry_ileg_proj", 0.1))}}
+
+
+def _flat(x):
+    """A digest value as a flat list (None as NaN)."""
+    if isinstance(x, (list, tuple)):
+        return [v for e in x for v in _flat(e)]
+    return [float("nan") if x is None else x]
+
+
+def diag_failures(name, got):
+    """The keys of `got` (diag_digest of the port's result) that miss
+    JAX_DIAGNOSTICS[name]: a list of strings."""
+    want = JAX_DIAGNOSTICS[name]
+    bad = [f"{k}: missing" for k in want if k not in got]
+    for k, w in want.items():
+        if k.startswith("_") or k not in got:
+            continue
+        g = got[k]
+        if isinstance(w, dict) or w is None or g is None:
+            ok = g == w
+        else:
+            gg, gw = _flat(g), _flat(w)
+            if len(gg) != len(gw):
+                ok = False
+            elif any(isinstance(v, str) for v in gw) or all(
+                    isinstance(v, int) for v in gw):
+                ok = gg == gw
+            else:
+                gg, gw = np.asarray(gg, float), np.asarray(gw, float)
+                scale = float(np.nanmax(np.abs(gw))) if \
+                    np.isfinite(gw).any() else 0.0
+                tol = DIAG_ABS.get(k, DIAG_REL * scale + 1e-12)
+                ok = bool(np.all((np.abs(gg - gw) <= tol)
+                                 | (np.isnan(gg) & np.isnan(gw))))
+        if not ok:
+            bad.append(f"{k}: {g} vs JAX's {w}")
+    return bad
+
+
+def diag_call(label, fn, want_launches):
+    """fn() with the launches counted; want_launches(result) -> the
+    launches the gate expects. Returns (result, counts, gate failures)."""
+    t0 = time.perf_counter()
+    reset_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = only(want_launches(res))
+    phase(label, t0, launches=counts)
+    return res, counts, ([] if counts == want
+                         else [f"{label}: launches {counts} != {want}"])
+
+
+def solve_launches(est):
+    """The f64 kernel once per LM iteration of every solve of est: those
+    adopted, the one dispatched and not yet adopted (a feed that ends
+    without `flush`), the initialization solves."""
+    solves = est.stats["solves"] + (est._pending is not None)
+    return {"lane_cholesky_solve[f64]": ITERS * solves
+            + E.INIT_ITERS * est.stats["init_solves"]}
+
+
+def run_diagnostics(runs):
+    """runs: (name, label, fn, want_launches, make_result): each call
+    counted (diag_call); after a diagnostic's last call (make_result not
+    None) its result made from its calls' results, digested and gated
+    (diag_failures). Returns (launches per label, {name: digest, ok and
+    seconds of all its calls}, failures)."""
+    launches, numbers, failed, outs, secs = {}, {}, [], {}, Counter()
+    for name, label, fn, want, make in runs:
+        t0 = time.perf_counter()
+        res, counts, bad = diag_call(f"diagnostics: {label}", fn, want)
+        launches[f"diagnostics: {label}"] = counts
+        failed += bad
+        outs.setdefault(name, []).append(res)
+        if make is not None:
+            got = diag_digest(name, make(outs[name]))
+            miss = diag_failures(name, got)
+            failed += [f"{name}: {m}" for m in miss]
+            numbers[name] = dict(digest=got, ok=not miss)
+            print(f"[diagnostics: {name}] "
+                  f"{'matches' if not miss else 'MISSES'} the JAX "
+                  f"package's numbers ({len(got)} keys)"
+                  + (f": {miss[:5]}" if miss else ""), flush=True)
+        secs[name] += time.perf_counter() - t0
+    for name, nums in numbers.items():
+        nums["seconds"] = secs[name]
+    return launches, numbers, failed
+
+
+def report_diagnostics(label, t_phase, numbers, **extra):
+    """The phase line with each module's seconds; the digests to
+    build/chip_smoke/<label>.json."""
+    path = BAG_DIR / (label.replace(" ", "_").replace("(", "")
+                      .replace(")", "") + ".json")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(numbers, indent=1))
+    phase(label, t_phase, modules=len(numbers), **extra,
+          seconds=json.dumps({k: round(v["seconds"], 3)
+                              for k, v in numbers.items()}), digests=path)
+    return {k: dict(ok=v["ok"], seconds=v["seconds"])
+            for k, v in numbers.items()}
+
+
+def diagnostics(dev, children):
+    """The six diagnostics of the main process, after `measurement
+    drivers`, while the children run: diag_simcheck (no device),
+    diag_rho (its 30-iteration solve: one f64 launch at (1, 222) an
+    iteration, exactly), the EKF pair (DIAG_SIZES), diag_tracker (90
+    frames, both trackers) and diag_loop (DIAG_SIZES' stream), each
+    through its module's functions on the card, launches counted per call
+    and its numbers held to JAX_DIAGNOSTICS. Returns (launches per path,
+    numbers)."""
+    from cerberus_tpu_torch.evals import (diag_ekf_slip, diag_ekf_slip2,
+                                          diag_loop, diag_rho, diag_simcheck,
+                                          diag_tracker)
+    t_phase = time.perf_counter()
+    running = lambda: sum(p.poll() is None for p in children.values())
+    print(f"[diagnostics] children still running: {running()}", flush=True)
+    none = lambda res: {}
+    first = lambda outs: outs[0]
+    rho = {}
+
+    def rho_run():
+        sim = diag_rho.make_sim()
+        res = dict(fd_check=diag_rho.fd_check(sim, dev))
+        before = lc.LAUNCHES_BY_SHAPE[(torch.float64, 1, 222)]
+        res["window_solve"] = diag_rho.window_solve(sim, dev)
+        torch.cuda.synchronize()
+        rho.update(at_222=lc.LAUNCHES_BY_SHAPE[(torch.float64, 1, 222)]
+                   - before, iters=res["window_solve"]["iters"])
+        return res
+
+    ekf = DIAG_SIZES["diag_ekf_slip"]
+    ekf2 = DIAG_SIZES["diag_ekf_slip2"]
+    loop = DIAG_SIZES["diag_loop"]
+    runs = [
+        ("diag_simcheck", "diag_simcheck", lambda: diag_simcheck.main([]),
+         none, first),
+        ("diag_rho", "diag_rho", rho_run,
+         lambda res: {"lane_cholesky_solve[f64]":
+                      res["window_solve"]["iters"]}, first),
+        ("diag_ekf_slip", "diag_ekf_slip", lambda: diag_ekf_slip.run(
+            ekf["duration"], dev, ekf["EKF_VARIANTS"]), none, first),
+        ("diag_ekf_slip2", "diag_ekf_slip2", lambda: diag_ekf_slip2.run(
+            ekf2["duration"], dev, [ekf2["variant"]]), none, first),
+        ("diag_tracker", "diag_tracker", lambda: diag_tracker.run(
+            max_frames=DIAG_SIZES["diag_tracker"]["max_frames"],
+            device=dev), none, first),
+        ("diag_loop", "diag_loop", lambda: diag_loop.run(
+            loop["duration"], loop["speed"], loop["seed"], loop["path"],
+            device=dev), none, first)]
+    launches, numbers, failed = run_diagnostics(runs)
+    n, iters = rho["at_222"], rho["iters"]
+    if not n == iters <= 30:
+        failed.append(f"diag_rho: {n} f64 launches at (1, 222) in a solve "
+                      f"of {iters} LM iterations (want one an iteration, "
+                      f"at most 30)")
+    summary = report_diagnostics("diagnostics", t_phase, numbers,
+                                 children_still_running=running(),
+                                 rho_launches_at_1_222=n)
+    if failed:
+        raise AssertionError(f"diagnostics gates: {failed}")
+    return launches, summary
+
+
+def diagnostics_streaming(dev):
+    """The five streaming diagnostics, in the `estimator branches` child
+    after its runs: one feed of diag_vision (vision on, debug on: 20
+    frames) analysed by diag_vision, diag_obs and diag_proj (with diag_proj's
+    perfect-association window), diag_vision's vision-off feed, diag_ex's
+    three variants (DIAG_FRAMES=14) and diag_dropout (3 s); the f64
+    kernel once per LM iteration of every solve of each, and the numbers
+    held to JAX_DIAGNOSTICS (diag_dropout's up to its first step on a
+    placeholder interval). Returns (launches per path, numbers)."""
+    from cerberus_tpu_torch.evals import (diag_dropout, diag_ex, diag_obs,
+                                          diag_proj, diag_vision)
+    t_phase = time.perf_counter()
+    vis = DIAG_SIZES["diag_vision"]
+    dur, frames = float(vis["DIAG_DUR"]), int(vis["DIAG_FRAMES"])
+    ex = DIAG_SIZES["diag_ex"]
+    drop = DIAG_SIZES["diag_dropout"]["duration"]
+    feeds = {}
+
+    def vision(on):
+        def fn():
+            feeds[on] = diag_vision.run(vision=on, duration=dur,
+                                        max_frames=frames, device=dev)
+            return feeds[on]
+        return fn
+
+    est_of = lambda res: solve_launches(res[0])
+
+    def vision_result(outs):
+        (est, sim, on), (_, _, off) = outs
+        (ce, be), (ct, bt) = diag_vision.cost_at_truth(est, sim)
+        return dict(vision_on=on, vision_off=off,
+                    cost_est=dict(cost=ce, ileg=be[0], proj=be[1],
+                                  prior=be[2]),
+                    cost_tru=dict(cost=ct, ileg=bt[0], proj=bt[1],
+                                  prior=bt[2]))
+
+    def proj_result(outs):
+        est, sim, _ = feeds[True]
+        return dict(perfect_assoc=outs[0],
+                    final_window=diag_proj.final_window(est, sim))
+
+    def obs_result(outs):
+        est, sim, _ = feeds[True]
+        return diag_obs.check_observations(est, sim, frames_fed=frames)
+
+    def ex_run(est_ex, on):
+        def fn():
+            if "ex" not in feeds:
+                feeds["ex"] = diag_ex.make_sim(float(ex["DIAG_DUR"]))
+            return diag_ex.replay_variant(feeds["ex"], est_ex, on,
+                                          int(ex["DIAG_FRAMES"]), dev)
+        return fn
+
+    def ex_result(outs):
+        return {f"ex={a},vision={b}": diag_ex.extrinsic_drift(*o)
+                for (a, b), o in zip(diag_ex.VARIANTS, outs)}
+
+    runs = [("diag_vision", "diag_vision on", vision(True), est_of, None),
+            ("diag_vision", "diag_vision off", vision(False), est_of,
+             vision_result),
+            ("diag_obs", "diag_obs", lambda: None, lambda res: {},
+             obs_result),
+            ("diag_proj", "diag_proj (a)",
+             lambda: diag_proj.perfect_assoc(feeds[True][1], device=dev),
+             lambda res: {}, proj_result)]
+    runs += [("diag_ex", f"diag_ex ex={a} vision={b}", ex_run(a, b),
+              est_of, ex_result if (a, b) == diag_ex.VARIANTS[-1] else None)
+             for a, b in diag_ex.VARIANTS]
+    runs.append(("diag_dropout", "diag_dropout",
+                 lambda: diag_dropout.drive(diag_dropout.make_sim(drop), dev),
+                 lambda res: {"lane_cholesky_solve[f64]":
+                              ITERS * (res[2]["all"] + res[0].stats["solves"])
+                              + E.INIT_ITERS * res[0].stats["init_solves"]},
+                 lambda outs: diag_dropout.summary(*outs[0], drop)))
+    launches, numbers, failed = run_diagnostics(runs)
+    summary = report_diagnostics("diagnostics (streaming)", t_phase,
+                                 numbers)
+    if failed:
+        raise AssertionError(f"diagnostics (streaming) gates: {failed}")
+    return launches, summary
 
 
 def profile_spans(label, fn, spans, total):
@@ -2971,6 +3657,9 @@ def main_phases(args, dev, children):
     driver_launches, drivers = measurement_drivers(dev, children)
     launches.update(driver_launches)
     print("measurement drivers: " + json.dumps(drivers))
+    diag_launches, diag = diagnostics(dev, children)
+    launches.update(diag_launches)
+    print("diagnostics: " + json.dumps(diag))
     for name, proc in children.items():
         child_launches, nums = finish_child(name, proc)
         launches.update(child_launches)

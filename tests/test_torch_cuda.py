@@ -15,8 +15,9 @@ pooled calibration step under a one-process nccl group; the evaluation
 scripts run on the card by default; a step with td free stays sync-free
 and launches the f64 kernel once per LM iteration; the robustness battery
 runs a case on the card at full width; the measurement drivers run on the
-card by default, and profile_inloop's variant loop never waits for it.
-(chip_smoke.py holds the kernels to their plain versions and the card's
+card by default, and profile_inloop's variant loop never waits for it;
+diag_rho's window solve launches the f64 kernel at (1, 222) once per LM
+iteration and agrees with the CPU. (chip_smoke.py holds the kernels to their plain versions and the card's
 solve, replays, tracker and EKF to the CPU's.) Every test here but the
 OpenCV-free camera's and the evaluation and measurement scripts' needs a
 CUDA device and skips without one.
@@ -837,3 +838,23 @@ def test_measurement_drivers_run_on_the_card_unless_told(monkeypatch):
     assert res["multichip_scaling"]["_launches"]["1"]["by_shape"] == \
         {"float32 B=2 n=222": 12 * 2}
     assert res["bench_klt"]["_launches"]["klt"]["by_shape"] == {}
+
+
+def test_diag_rho_solve_on_the_card(cuda):
+    """diag_rho's window solve (rho free from 0.21 m against a 0.215 m
+    calf) on the card at F = 32 for its 30 LM iterations: exactly one f64
+    launch at (1, 222) an iteration, and the CPU's answer within 1e-8."""
+    from cerberus_tpu_torch.evals import diag_rho
+
+    sim = diag_rho.make_sim(duration=3.0)
+    lc.LAUNCHES_BY_SHAPE.clear()
+    card = diag_rho.window_solve(sim, cuda, F=32)
+    torch.cuda.synchronize()
+    assert dict(lc.LAUNCHES_BY_SHAPE) == {(torch.float64, 1, 222): 30}
+    cpu = diag_rho.window_solve(sim, "cpu", F=32)
+    assert card["accepted"] == cpu["accepted"]
+    for k in ("rho_frame5", "pos_err"):
+        np.testing.assert_allclose(card[k], cpu[k], rtol=0, atol=1e-8,
+                                   err_msg=k)
+    np.testing.assert_allclose([card["cost0"], card["cost"]],
+                               [cpu["cost0"], cpu["cost"]], rtol=1e-8)

@@ -172,6 +172,10 @@ NO_JAX_SCRIPT = textwrap.dedent("""
     st2 = multichip_scaling.solve_on_mesh(sts, dts, make_mesh(2, device="cpu"),
                                           SolveOptions(max_iters=1))
     assert torch.isfinite(st2.p).all()
+    from cerberus_tpu_torch.evals import diag_ekf_slip, diag_rho
+    assert diag_ekf_slip.main(["0.01", "--device", "cpu"])["samples"] == 5
+    fd = diag_rho.fd_check(simulate(SimConfig(duration=0.5, seed=24)), "cpu")
+    assert np.isfinite(fd["J_col"]).all() and np.isfinite(fd["fd"]).all()
     assert not any(name == "jax" or name.startswith(("jax.", "jaxlib"))
                    or name.startswith("cerberus_tpu.")
                    for name, mod in sys.modules.items() if mod is not None)
@@ -287,3 +291,25 @@ def test_image_entry_points_default_to_cuda():
                  lambda: replay_images({"t": np.zeros(1)})):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+
+
+DIAGNOSTICS = ("diag_dropout", "diag_ekf_slip", "diag_ekf_slip2", "diag_ex",
+               "diag_loop", "diag_obs", "diag_proj", "diag_rho",
+               "diag_tracker", "diag_vision")
+
+
+def test_diag_entry_points_default_to_cuda():
+    """The diagnostics ask for the card too: without --device cpu each
+    `main` raises where there is none, before any work; diag_simcheck,
+    which touches no device, has no --device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import importlib
+
+    for name in DIAGNOSTICS:
+        mod = importlib.import_module(f"cerberus_tpu_torch.evals.{name}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main([])
+    from cerberus_tpu_torch.evals import diag_simcheck
+    with pytest.raises(SystemExit):
+        diag_simcheck.main(["--device", "cpu"])

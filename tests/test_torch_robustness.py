@@ -21,6 +21,11 @@ in both drivers (their EstimatorConfig swapped for the test).
     relative, drift and ATE of the frames before that step within 1e-8
     relative (the driver's `before_placeholder`), and the whole run's
     printed;
+  * `imu_dropout_2x1s` is the port's diag_dropout run (the same
+    simulation, windows, config and watch): diag_dropout's `summary` of the
+    port's run against the JAX script's lines on JAX's, held before the
+    first placeholder step (counts, failure reasons, the error trace within
+    1e-8 m, the scores before that step within 1e-8 relative);
   * without a card the driver refuses `--device cuda`.
 """
 
@@ -38,9 +43,10 @@ import cerberus_tpu.data.replay as jreplay_mod
 import cerberus_tpu.estimator.estimator as jest_mod
 from cerberus_tpu.data import SimConfig, simulate
 from cerberus_tpu_torch.config import EstimatorConfig as tConfig
+from cerberus_tpu_torch.evals import diag_dropout
 from cerberus_tpu_torch.evals import robustness as rb
 from estimator_runs import assert_runs_match, placeholder_steps, record
-from torch_port_util import assert_rel
+from torch_port_util import assert_close, assert_rel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(max_features=32, max_num_iterations=4)
@@ -177,6 +183,42 @@ def test_battery_matches_jax(monkeypatch, tmp_path):
             print(f"PORT_DIFF robustness[{case}].td_final_ms (not held): "
                   f"port {got['td_final_ms']:.6f}, JAX "
                   f"{float(jest_.td) * 1e3:.6f}")
+    # imu_dropout_2x1s is diag_dropout's run (the same simulation, windows,
+    # config and watch): diag_dropout's analysis of the port's run against
+    # the JAX script's lines (evals/diag_dropout.py:33-45) on JAX's, held
+    # before the first placeholder step
+    i = CASES.index("imu_dropout_2x1s")
+    jout, tout = outs["jax"][i], outs["port"][i]
+    jest_, test_ = jout["estimator"], tout["estimator"]
+    counts = tres["_meta"]["estimator"]["imu_dropout_2x1s"]
+    seen = {"all": counts["solves_all"] - test_.stats["solves"],
+            "placeholder_at": counts["placeholder_at"]}
+    got = diag_dropout.summary(test_, tout, seen, 2.5)
+    for k, v in (("reboots", jest_.stats["reboots"]),
+                 ("stale_intervals", jest_.stats.get("stale_imu_intervals")),
+                 ("failure_reasons", [[float(t), r] for t, r in
+                                      jest_.stats.get("failure_reasons", [])]),
+                 ("placeholder_at", counts["placeholder_at"])):
+        assert got[k] == v, (k, got[k], v)
+    cut = counts["placeholder_at"]
+    t = np.asarray(jout["est_t"])
+    err = np.linalg.norm(jout["est_p"] - jout["est_p"][0]
+                         - (jout["gt_p"] - jout["gt_p"][0]), axis=1)
+    for t0, rows in got["err_around"].items():
+        sel = (t > t0 - 2) & (t < t0 + 4)
+        want = list(zip(t[sel][::3], err[sel][::3]))
+        assert [r[0] for r in rows] == [float(w[0]) for w in want]
+        keep = [j for j, w in enumerate(want) if w[0] < cut]
+        assert keep
+        assert_close(f"diag_dropout err around {t0:.2f} s",
+                     [rows[j][1] for j in keep],
+                     [want[j][1] for j in keep], 0, 1e-8)
+    want = rb.before_placeholder(jout, cut)
+    assert got["before_placeholder"]["frames"] == want["frames"]
+    assert_rel("diag_dropout before the placeholder step",
+               [got["before_placeholder"][k] for k in ("drift_pct",
+                                                        "ate_rmse")],
+               [want[k] for k in ("drift_pct", "ate_rmse")], 1e-8)
 
 
 def test_refuses_cuda_without_a_card():
