@@ -26,10 +26,27 @@ accept: once a window has converged its state, lambda, cost and accept
 count stay frozen, which gives the JAX loop's iterates. Nothing in the loop
 reads a value back to the host.
 
-Profiler spans: `lm_solve` (one solve), `assemble` (max_iters + 1 per
-solve) and `solve_step` (max_iters per solve) on every path, for
-torch.profiler (`chip_smoke.py --profile` reads them); without a profiler
-the 2 max_iters + 2 spans cost under a millisecond of host time a solve.
+Profiler spans (torch.profiler; `chip_smoke.py --profile` and the
+benchmark's per-layer metrics read them): `lm_solve` (one solve),
+`assemble` (max_iters + 1 per solve) and `solve_step` (max_iters per
+solve) on every path, and inside them stage spans that on the Schur path
+partition the solve, each kernel launched in exactly one of them:
+- in each assembly (ops/structured.py and here): `proj_jacobians`,
+  `proj_normal` (twice), `ileg_factor`, `prior_calib`, `gauge_project`,
+  `robust_cost`;
+- in each `solve_step`: `schur_reduce`, `lane_chol`, `back_substitute`;
+- in `_lm`: `lm_update` (once before the loop, twice an iteration, and
+  under a profiler once more for the counters) and `reanchor` (once).
+(The full-system paths add `gauge_project`, `robust_cost` and `lane_chol`
+and leave their H assembly and equilibration outside stage spans.) A solve
+opens 7 (max_iters + 1) + 5 max_iters + 2 stage spans, 153 at 12
+iterations; without a profiler each costs about 10 us of host time, about
+1.5 ms a solve. Under a profiler `_lm` also counts its work
+(`utils/profiling.count`): `lm.window_iterations`,
+`lm.active_window_iterations` (windows not yet converged at an
+iteration's start), `lm.accepted_steps`, `assemble.slots` and
+`assemble.valid_slots`, as device tensors read back by nobody inside the
+solve; without one it counts nothing and launches nothing for it.
 
 Matmul precision: `solve_window` runs under
 `device.matmul_precision("highest")` (no TF32), the counterpart of the JAX
@@ -53,7 +70,7 @@ from cerberus_tpu_torch.ops.marginalize import (_gauge_null_basis,
                                                 _gauge_projector)
 from cerberus_tpu_torch.ops.structured import (build_normal_equations,
                                                build_normal_equations_blocks)
-from cerberus_tpu_torch.utils import lie
+from cerberus_tpu_torch.utils import lie, profiling
 
 
 class SolveOptions(NamedTuple):
@@ -100,7 +117,10 @@ def _damped_solve(H, b, lam, opts: SolveOptions, chol=lane_cholesky_solve):
     Hs = H / (d[:, :, None] * d[:, None, :])
     eye = torch.eye(n, dtype=H.dtype, device=H.device)
     A = Hs + (lam[:, None, None] + 1e-12) * eye
-    return chol(A.contiguous(), (-b / d).contiguous()) / d
+    rhs = (-b / d).contiguous()
+    with record_function("lane_chol"):
+        x = chol(A.contiguous(), rhs)
+    return x / d
 
 
 def _damped_solve_schur(H_pp, H_pd, h_dd, b_p, b_d, lam, opts: SolveOptions,
@@ -110,21 +130,25 @@ def _damped_solve_schur(H_pp, H_pd, h_dd, b_p, b_d, lam, opts: SolveOptions,
     inverse-depth block in the same equilibrated, identically damped system,
     then the dense 222-dim reduced system through `chol`."""
     D = H_pp.shape[-1]
-    d_p = torch.sqrt(torch.clamp(torch.diagonal(H_pp, dim1=-2, dim2=-1),
-                                 min=opts.diag_floor))
-    d_d = torch.sqrt(torch.clamp(h_dd, min=opts.diag_floor))
-    Hs_pp = H_pp / (d_p[:, :, None] * d_p[:, None, :])
-    Hs_pd = H_pd / (d_p[:, :, None] * d_d[:, None, :])
-    a_dd = h_dd / (d_d * d_d) + lam[:, None] + 1e-12   # scaled depth diagonal
-    eye = torch.eye(D, dtype=H_pp.dtype, device=H_pp.device)
-    A_pp = Hs_pp + (lam[:, None, None] + 1e-12) * eye
+    with record_function("schur_reduce"):
+        d_p = torch.sqrt(torch.clamp(torch.diagonal(H_pp, dim1=-2, dim2=-1),
+                                     min=opts.diag_floor))
+        d_d = torch.sqrt(torch.clamp(h_dd, min=opts.diag_floor))
+        Hs_pp = H_pp / (d_p[:, :, None] * d_p[:, None, :])
+        Hs_pd = H_pd / (d_p[:, :, None] * d_d[:, None, :])
+        a_dd = h_dd / (d_d * d_d) + lam[:, None] + 1e-12  # scaled depth diag
+        eye = torch.eye(D, dtype=H_pp.dtype, device=H_pp.device)
+        A_pp = Hs_pp + (lam[:, None, None] + 1e-12) * eye
 
-    W = Hs_pd / a_dd[:, None, :]                         # (B, D, F)
-    S = A_pp - torch.einsum("bdf,bef->bde", W, Hs_pd)
-    rhs = -b_p / d_p + torch.einsum("bdf,bf->bd", W, b_d / d_d)
-    y_p = chol(S.contiguous(), rhs.contiguous())
-    y_d = (-b_d / d_d - torch.einsum("bdf,bd->bf", Hs_pd, y_p)) / a_dd
-    return torch.cat([y_p / d_p, y_d / d_d], dim=1)
+        W = Hs_pd / a_dd[:, None, :]                     # (B, D, F)
+        S = A_pp - torch.einsum("bdf,bef->bde", W, Hs_pd)
+        rhs = -b_p / d_p + torch.einsum("bdf,bf->bd", W, b_d / d_d)
+        S, rhs = S.contiguous(), rhs.contiguous()
+    with record_function("lane_chol"):
+        y_p = chol(S, rhs)
+    with record_function("back_substitute"):
+        y_d = (-b_d / d_d - torch.einsum("bdf,bd->bf", Hs_pd, y_p)) / a_dd
+        return torch.cat([y_p / d_p, y_d / d_d], dim=1)
 
 
 def _project_gauge_blocks(H_pp, H_pd, b_p, st: fac.WindowState, free_mask):
@@ -164,9 +188,11 @@ def _assemble_schur(st: fac.WindowState, data: fac.WindowData,
     F = st.depth.shape[0]
     H_pp, H_pd, h_dd, b_p, b_d, r0 = build_normal_equations_blocks(st, data)
     if opts.project_gauge:
-        H_pp, H_pd, b_p = _project_gauge_blocks(H_pp, H_pd, b_p, st,
-                                                data.free_mask)
-    return (H_pp, H_pd, h_dd, b_p, b_d), fac.robust_cost(r0, F)
+        with record_function("gauge_project"):
+            H_pp, H_pd, b_p = _project_gauge_blocks(H_pp, H_pd, b_p, st,
+                                                    data.free_mask)
+    with record_function("robust_cost"):
+        return (H_pp, H_pd, h_dd, b_p, b_d), fac.robust_cost(r0, F)
 
 
 def _assemble_full(st: fac.WindowState, data: fac.WindowData,
@@ -182,8 +208,10 @@ def _assemble_full(st: fac.WindowState, data: fac.WindowData,
         H = J.T @ J
         b = J.T @ r
     if opts.project_gauge:
-        H, b = _project_gauge_full(H, b, st, data)
-    return (H, b), fac.robust_cost(r0, F)
+        with record_function("gauge_project"):
+            H, b = _project_gauge_full(H, b, st, data)
+    with record_function("robust_cost"):
+        return (H, b), fac.robust_cost(r0, F)
 
 
 def _lm(states: fac.WindowState, datas: fac.WindowData, opts: SolveOptions,
@@ -206,35 +234,56 @@ def _lm(states: fac.WindowState, datas: fac.WindowData, opts: SolveOptions,
     def pick(ok, a, b):
         return torch.where(ok.reshape((B,) + (1,) * (a.ndim - 1)), a, b)
 
+    # the counters' accumulator exists only under a profiler: one add an
+    # iteration, never read back inside the loop
+    counting = profiling.recording()
     st = states
     with record_function("assemble"):
         pieces, cost0 = assemble(states, datas)
-    cost = cost0
-    lam = torch.full((B,), opts.lam0, dtype=dtype, device=dev)
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    acc = torch.zeros((B,), dtype=torch.int32, device=dev)
+    with record_function("lm_update"):
+        cost = cost0
+        lam = torch.full((B,), opts.lam0, dtype=dtype, device=dev)
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        acc = torch.zeros((B,), dtype=torch.int32, device=dev)
+        done_iters = torch.zeros((B,), dtype=torch.int32, device=dev) \
+            if counting else None
     for _ in range(opts.max_iters):
         with record_function("solve_step"):
             dx = solve_step(pieces, lam)
-        mx = torch.amax(torch.abs(dx), dim=1, keepdim=True)
-        dx = dx * torch.clamp(opts.step_clip / torch.clamp(mx, min=1e-30),
-                              max=1.0)
-        cand = fac.retract(st, dx)
+        with record_function("lm_update"):
+            if counting:
+                done_iters += done
+            mx = torch.amax(torch.abs(dx), dim=1, keepdim=True)
+            dx = dx * torch.clamp(opts.step_clip / torch.clamp(mx, min=1e-30),
+                                  max=1.0)
+            cand = fac.retract(st, dx)
         with record_function("assemble"):
             cand_pieces, new_cost = assemble(cand, datas)
-        ok = (new_cost < cost) & ~done
-        st = fac.WindowState(*(pick(ok, a, b) for a, b in zip(cand, st)))
-        pieces = tuple(pick(ok, a, b) for a, b in zip(cand_pieces, pieces))
-        # converged: an accepted step improved cost by < tol * cost
-        done2 = done | (ok & (cost - new_cost
-                              <= opts.function_tolerance * cost))
-        lam = torch.where(done, lam, torch.where(
-            ok, torch.clamp(lam / opts.lam_down, min=opts.lam_min),
-            torch.clamp(lam * opts.lam_up, max=opts.lam_max)))
-        cost = torch.where(ok, new_cost, cost)
-        acc = acc + ok.to(torch.int32)
-        done = done2
-    st = reanchor(states, st)
+        with record_function("lm_update"):
+            ok = (new_cost < cost) & ~done
+            st = fac.WindowState(*(pick(ok, a, b) for a, b in zip(cand, st)))
+            pieces = tuple(pick(ok, a, b)
+                           for a, b in zip(cand_pieces, pieces))
+            # converged: an accepted step improved cost by < tol * cost
+            done2 = done | (ok & (cost - new_cost
+                                  <= opts.function_tolerance * cost))
+            lam = torch.where(done, lam, torch.where(
+                ok, torch.clamp(lam / opts.lam_down, min=opts.lam_min),
+                torch.clamp(lam * opts.lam_up, max=opts.lam_max)))
+            cost = torch.where(ok, new_cost, cost)
+            acc = acc + ok.to(torch.int32)
+            done = done2
+    with record_function("reanchor"):
+        st = reanchor(states, st)
+    if counting:
+        with record_function("lm_update"):
+            n = B * opts.max_iters
+            profiling.count("lm.window_iterations", n)
+            profiling.count("lm.active_window_iterations",
+                            n - done_iters.sum())
+            profiling.count("lm.accepted_steps", acc.sum())
+            profiling.count("assemble.slots", datas.f_valid.numel())
+            profiling.count("assemble.valid_slots", datas.f_valid.sum())
     return st, SolveInfo(cost0=cost0, cost=cost, lam=lam, accepted=acc)
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.func import jacfwd, jacrev, vmap
+from torch.profiler import record_function
 
 from cerberus_tpu_torch import config as C
 from cerberus_tpu_torch.ops import factors as fac
@@ -164,9 +165,6 @@ def _proj_rows_split(st: fac.WindowState, data: fac.WindowData):
     F = st.depth.shape[0]
     dtype, dev = st.p.dtype, st.p.device
     P = F * NF
-    zero26 = torch.zeros((PROJ_TAN,), dtype=dtype, device=dev)
-    frames = torch.arange(NF, device=dev)
-    z1 = torch.zeros(1, dtype=dtype, device=dev)
 
     def per_feature(f_pts, f_pts_r, f_vel, f_vel_r, f_td, f_obs, f_stereo,
                     f_valid, start, depth_f):
@@ -221,34 +219,39 @@ def _proj_rows_split(st: fac.WindowState, data: fac.WindowData):
         return vmap(per_frame)(frames, f_pts, f_vel, f_td, st.p, st.q,
                                f_obs, f_stereo, f_pts_r, f_vel_r)
 
-    r_f, J_f = vmap(per_feature)(
-        data.f_pts, data.f_pts_r, data.f_vel, data.f_vel_r, data.f_td,
-        data.f_obs, data.f_stereo, data.f_valid, data.f_start, st.depth)
-    r_p = r_f.reshape(P, 4)
+    with record_function("proj_jacobians"):
+        zero26 = torch.zeros((PROJ_TAN,), dtype=dtype, device=dev)
+        frames = torch.arange(NF, device=dev)
+        z1 = torch.zeros(1, dtype=dtype, device=dev)
+        r_f, J_f = vmap(per_feature)(
+            data.f_pts, data.f_pts_r, data.f_vel, data.f_vel_r, data.f_td,
+            data.f_obs, data.f_stereo, data.f_valid, data.f_start, st.depth)
+    with record_function("proj_normal"):
+        r_p = r_f.reshape(P, 4)
 
-    # Huber IRLS on each 2-dim block
-    def blk_w(rb):
-        sq = torch.sum(rb * rb, dim=-1)
-        return torch.where(
-            sq <= fac.HUBER_DELTA ** 2, torch.ones_like(sq),
-            fac.HUBER_DELTA / torch.sqrt(torch.clamp(sq, min=1e-30)))
-    w_mono = blk_w(r_f[..., 0:2])
-    w_st = blk_w(r_f[..., 2:4])
-    sw = torch.sqrt(torch.stack([w_mono, w_mono, w_st, w_st], dim=-1))
-    r_pw = (r_f * sw).reshape(P, 4)
-    J_pw = J_f * sw[..., None]                             # (F, NF, 4, 26)
+        # Huber IRLS on each 2-dim block
+        def blk_w(rb):
+            sq = torch.sum(rb * rb, dim=-1)
+            return torch.where(
+                sq <= fac.HUBER_DELTA ** 2, torch.ones_like(sq),
+                fac.HUBER_DELTA / torch.sqrt(torch.clamp(sq, min=1e-30)))
+        w_mono = blk_w(r_f[..., 0:2])
+        w_st = blk_w(r_f[..., 2:4])
+        sw = torch.sqrt(torch.stack([w_mono, w_mono, w_st, w_st], dim=-1))
+        r_pw = (r_f * sw).reshape(P, 4)
+        J_pw = J_f * sw[..., None]                         # (F, NF, 4, 26)
 
-    # ---- widen the pose columns to all 11 frames (one-hot contraction) ----
-    Ei = (data.f_start[:, None] == frames).to(dtype)      # (F, 11) anchor
-    Ej = torch.eye(NF, dtype=dtype, device=dev)            # (11, 11) frame j
-    pose_wide = (
-        torch.einsum("fjab,fi->fjaib", J_pw[..., 0:6], Ei)
-        + torch.einsum("fjab,ji->fjaib", J_pw[..., 6:12], Ej)
-    ).reshape(F, NF, 4, 6 * NF)
-    A79 = torch.cat([pose_wide, J_pw[..., 12:24], J_pw[..., 25:26]],
-                    dim=-1).reshape(P * 4, 79)
-    jd = J_pw[..., 24].reshape(P * 4)
-    return r_p, r_pw, A79, jd
+        # ---- widen the pose columns to all 11 frames (one-hot contraction)
+        Ei = (data.f_start[:, None] == frames).to(dtype)  # (F, 11) anchor
+        Ej = torch.eye(NF, dtype=dtype, device=dev)        # (11, 11) frame j
+        pose_wide = (
+            torch.einsum("fjab,fi->fjaib", J_pw[..., 0:6], Ei)
+            + torch.einsum("fjab,ji->fjaib", J_pw[..., 6:12], Ej)
+        ).reshape(F, NF, 4, 6 * NF)
+        A79 = torch.cat([pose_wide, J_pw[..., 12:24], J_pw[..., 25:26]],
+                        dim=-1).reshape(P * 4, 79)
+        jd = J_pw[..., 24].reshape(P * 4)
+        return r_p, r_pw, A79, jd
 
 
 def build_normal_equations_blocks(st: fac.WindowState, data: fac.WindowData):
@@ -264,59 +267,62 @@ def build_normal_equations_blocks(st: fac.WindowState, data: fac.WindowData):
     factors.linearize."""
     F = st.depth.shape[0]
     dtype, dev = st.p.dtype, st.p.device
-    P79, Pil = _placements(dtype, dev)
 
     r_p, r_pw, A79, jd = _proj_rows_split(st, data)
-    b79 = A79.T @ r_pw.reshape(-1)
+    with record_function("proj_normal"):
+        P79, Pil = _placements(dtype, dev)
+        b79 = A79.T @ r_pw.reshape(-1)
 
-    # per-feature grouped views: rows (f, j, comp) → (F, NF*4)
-    A_g = A79.reshape(F, NF * 4, 79)
-    jd_g = jd.reshape(F, NF * 4)
-    rw_g = r_pw.reshape(F, NF * 4)
+        # per-feature grouped views: rows (f, j, comp) → (F, NF*4)
+        A_g = A79.reshape(F, NF * 4, 79)
+        jd_g = jd.reshape(F, NF * 4)
+        rw_g = r_pw.reshape(F, NF * 4)
 
-    H79 = A79.T @ A79                                      # (79, 79)
-    Hpd79 = torch.einsum("fnc,fn->cf", A_g, jd_g)          # (79, F)
-    h_dd = torch.einsum("fn,fn->f", jd_g, jd_g)            # (F,)
-    b_d = torch.einsum("fn,fn->f", jd_g, rw_g)             # (F,)
+        H79 = A79.T @ A79                                  # (79, 79)
+        Hpd79 = torch.einsum("fnc,fn->cf", A_g, jd_g)      # (79, F)
+        h_dd = torch.einsum("fn,fn->f", jd_g, jd_g)        # (F,)
+        b_d = torch.einsum("fn,fn->f", jd_g, rw_g)         # (F,)
 
-    # ---- place the projection subspace with one-hot contractions ----
-    H_pp = P79.T @ H79 @ P79
-    H_pd = P79.T @ Hpd79
-    b_p = P79.T @ b79
+        # ---- place the projection subspace with one-hot contractions ----
+        H_pp = P79.T @ H79 @ P79
+        H_pd = P79.T @ Hpd79
+        b_p = P79.T @ b79
 
     # ---- IMU+leg factors: batched rows, one placement contraction ----
-    r_il, J_il = _ileg_rows(st, data)                      # (10,31) (10,31,38)
-    Jw = torch.einsum("kra,kaA->krA", J_il, Pil)           # (NI, 31, 222)
-    H_pp = H_pp + torch.einsum("krA,krB->AB", Jw, Jw)
-    b_p = b_p + torch.einsum("krA,kr->A", Jw, r_il)
+    with record_function("ileg_factor"):
+        r_il, J_il = _ileg_rows(st, data)                  # (10,31) (10,31,38)
+        Jw = torch.einsum("kra,kaA->krA", J_il, Pil)       # (NI, 31, 222)
+        H_pp = H_pp + torch.einsum("krA,krB->AB", Jw, Jw)
+        b_p = b_p + torch.einsum("krA,kr->A", Jw, r_il)
 
-    # ---- prior (dense block only: the prior never references depths) ----
-    r_prior = fac._zero_where(
-        data.prior_valid,
-        data.prior_r + data.prior_J @ fac.local_diff(st, data.prior_lin))
-    Jpr = fac._zero_where(data.prior_valid, data.prior_J)
-    H_pp = H_pp + Jpr.T @ Jpr
-    b_p = b_p + Jpr.T @ r_prior
+    with record_function("prior_calib"):
+        # ---- prior (dense block only: the prior never references depths)
+        r_prior = fac._zero_where(
+            data.prior_valid,
+            data.prior_r + data.prior_J @ fac.local_diff(st, data.prior_lin))
+        Jpr = fac._zero_where(data.prior_valid, data.prior_J)
+        H_pp = H_pp + Jpr.T @ Jpr
+        b_p = b_p + Jpr.T @ r_prior
 
-    # ---- standing calibration prior (13 diagonal rows on ex0/ex1/td;
-    # factors._calib_residuals). J ~ calib_w * I on those dims.
-    r_calib = fac._calib_residuals(st, data)
-    pad = torch.zeros((fac.EX0_OFF,), dtype=dtype, device=dev)
-    H_pp = H_pp + torch.diag_embed(torch.cat([pad, data.calib_w ** 2]))
-    b_p = b_p + torch.cat([pad, data.calib_w * r_calib])
+        # ---- standing calibration prior (13 diagonal rows on ex0/ex1/td;
+        # factors._calib_residuals). J ~ calib_w * I on those dims.
+        r_calib = fac._calib_residuals(st, data)
+        pad = torch.zeros((fac.EX0_OFF,), dtype=dtype, device=dev)
+        H_pp = H_pp + torch.diag_embed(torch.cat([pad, data.calib_w ** 2]))
+        b_p = b_p + torch.cat([pad, data.calib_w * r_calib])
 
-    # ---- free-mask (zero rows+cols of frozen dims) ----
-    mp = data.free_mask.to(dtype)
-    md = data.f_valid.to(dtype)
-    H_pp = H_pp * mp[:, None] * mp[None, :]
-    H_pd = H_pd * mp[:, None] * md[None, :]
-    h_dd = h_dd * md
-    b_p = b_p * mp
-    b_d = b_d * md
+        # ---- free-mask (zero rows+cols of frozen dims) ----
+        mp = data.free_mask.to(dtype)
+        md = data.f_valid.to(dtype)
+        H_pp = H_pp * mp[:, None] * mp[None, :]
+        H_pd = H_pd * mp[:, None] * md[None, :]
+        h_dd = h_dd * md
+        b_p = b_p * mp
+        b_d = b_d * md
 
-    # residual vector for cost bookkeeping (same ordering as factors stack)
-    r0 = torch.cat([r_il.reshape(-1), r_p.reshape(-1), r_prior, r_calib])
-    return H_pp, H_pd, h_dd, b_p, b_d, r0
+        # residual vector for cost bookkeeping (same ordering as factors)
+        r0 = torch.cat([r_il.reshape(-1), r_p.reshape(-1), r_prior, r_calib])
+        return H_pp, H_pd, h_dd, b_p, b_d, r0
 
 
 def build_normal_equations(st: fac.WindowState, data: fac.WindowData):

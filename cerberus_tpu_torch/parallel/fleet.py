@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from cerberus_tpu_torch.config import EstimatorConfig
 from cerberus_tpu_torch.data.simulator import SimConfig, simulate
@@ -98,6 +99,7 @@ def solve_fleet(states, datas, truths, mesh=None,
     """One fleet step: solve every window (`batched_solve`, one chunk per
     device of the mesh), score against truth."""
     st, info = batched_solve(states, datas, mesh, opts)
-    truths = fac.map_tensors(lambda x: x.to(st.p.device), truths)
-    return FleetResult(states=st, cost0=info.cost0, cost=info.cost,
-                       traj_err=_traj_err(st, truths))
+    with record_function("fleet_score"):
+        truths = fac.map_tensors(lambda x: x.to(st.p.device), truths)
+        return FleetResult(states=st, cost0=info.cost0, cost=info.cost,
+                           traj_err=_traj_err(st, truths))

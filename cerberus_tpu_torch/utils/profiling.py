@@ -1,53 +1,48 @@
-"""Timing + device profiling (port of `cerberus_tpu/utils/profiling.py`).
+"""Device profiling (port of `cerberus_tpu/utils/profiling.py`).
 
-TicToc: the reference's manual wall-clock stopwatch (reference:
-src/utils/tic_toc.h). trace(): context manager around `torch.profiler` for
-per-kernel traces of the card (the replacement for the reference's
-ROS_DEBUG timing prints, SURVEY.md §5).
+trace(): context manager around `torch.profiler` for per-kernel traces of
+the card (the replacement for the reference's ROS_DEBUG timing prints,
+SURVEY.md §5).
+
+count() / counters() / reset_counters(): named counts of the program's
+work (LM iterations, accepted steps, valid feature slots), kept only while
+a torch.profiler records, so that a traced run reads its ratios where the
+work happens. Off the profiler `count` is one flag check: it stores and
+launches nothing. Under it a device tensor is added on its device, and
+nothing is read back until `counters()`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import defaultdict
+
+import torch
+
+_COUNTS: dict = {}
 
 
-class TicToc:
-    def __init__(self):
-        self.tic()
-
-    def tic(self):
-        self.t0 = time.perf_counter()
-
-    def toc(self) -> float:
-        """Milliseconds since tic()."""
-        return (time.perf_counter() - self.t0) * 1000.0
+def recording() -> bool:
+    """True while a torch.profiler (or autograd profiler) records."""
+    return torch._C._autograd._profiler_enabled()
 
 
-class Timers:
-    """Named cumulative timers (replacement for the scattered sum_t /
-    printStatistics counters, visualization.cpp:109-118)."""
+def count(name: str, value) -> None:
+    """Add `value` (a number, or a tensor of one element, left on its
+    device) to the counter `name`, while a profiler records."""
+    if not recording():
+        return
+    old = _COUNTS.get(name)
+    _COUNTS[name] = value if old is None else old + value
 
-    def __init__(self):
-        self.total = defaultdict(float)
-        self.count = defaultdict(int)
 
-    @contextlib.contextmanager
-    def time(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.total[name] += dt
-            self.count[name] += 1
+def counters() -> dict:
+    """Every counter's value as a float (reads device counters back)."""
+    return {k: float(v) for k, v in _COUNTS.items()}
 
-    def summary(self) -> dict:
-        return {k: dict(total_s=self.total[k], count=self.count[k],
-                        mean_ms=1000.0 * self.total[k] / max(self.count[k], 1))
-                for k in self.total}
+
+def reset_counters() -> None:
+    _COUNTS.clear()
 
 
 @contextlib.contextmanager
@@ -56,7 +51,6 @@ def trace(logdir: str):
     kernels when CUDA is available) into logdir/trace.json, viewable in
     chrome://tracing or Perfetto. Yields the profiler, whose
     key_averages() gives the per-op table."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]

@@ -192,6 +192,35 @@ def test_lm_loop_never_waits_for_the_device(small_batch):
     torch.cuda.synchronize()
 
 
+def test_traced_lm_loop_never_waits_for_the_device(small_batch):
+    """Under torch.profiler the solve's stage spans and work counters read
+    nothing back either: the counters stay on the card until
+    `profiling.counters()` after the solve."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cerberus_tpu_torch.ops.solver import SolveOptions, solve_window_batched
+    from cerberus_tpu_torch.utils import profiling
+
+    states, datas = small_batch
+    opts = SolveOptions(max_iters=2)
+    solve_window_batched(states, datas, opts)
+    torch.cuda.synchronize()
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, info = solve_window_batched(states, datas, opts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    counts = profiling.counters()
+    profiling.reset_counters()
+    B = states.p.shape[0]
+    assert counts["lm.window_iterations"] == 2 * B
+    assert counts["lm.accepted_steps"] == float(info.accepted.sum())
+    assert counts["assemble.valid_slots"] == float(datas.f_valid.sum())
+
+
 @pytest.mark.parametrize("structured", [True, False])
 def test_full_system_solve_never_waits_for_the_device(small_batch,
                                                       structured):

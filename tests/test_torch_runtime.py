@@ -184,15 +184,7 @@ def test_cli_refuses_what_it_cannot_run(monkeypatch):
             treplay_mod._main(ARGV)
 
 
-def test_profiling_timers_and_trace(tmp_path):
-    tt = profiling.TicToc()
-    timers = profiling.Timers()
-    for _ in range(3):
-        with timers.time("matmul"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    assert tt.toc() >= 0.0
-    s = timers.summary()["matmul"]
-    assert s["count"] == 3 and s["total_s"] > 0
+def test_profiling_trace(tmp_path):
     with profiling.trace(str(tmp_path / "trace")) as prof:
         with torch.profiler.record_function("probe_span"):
             torch.ones(32, 32) @ torch.ones(32, 32)
