@@ -177,6 +177,18 @@ def retract(s: WindowState, delta: torch.Tensor) -> WindowState:
     )
 
 
+def retract_pose(p, q, d6):
+    """(p, q) [+] d6 of one pose: p + d6[:3], normalize(q (x) delta_q(d6[3:])),
+    the perturbation the per-factor Jacobians are taken under."""
+    return p + d6[0:3], lie.quat_normalize(lie.quat_mul(q, lie.delta_q(d6[3:6])))
+
+
+def with_value(f):
+    """f -> (d -> (f(d), f(d))): the `has_aux` form that returns a
+    Jacobian together with the residual it was taken at."""
+    return lambda d: (lambda r: (r, r))(f(d))
+
+
 def local_diff(s: WindowState, lin: WindowState) -> torch.Tensor:
     """Dense-tangent x [-] lin (quaternion-aware), the prior's dx
     (reference: marginalization_factor.cpp:361-378)."""

@@ -1,11 +1,12 @@
 """Structured (factor-sparse) normal-equation assembly (port of
 `cerberus_tpu/ops/structured.py::build_normal_equations_blocks`).
 
-Per-factor Jacobians come from small `torch.func` transforms vmapped across
-factors: `jacfwd` over the 38-dim local tangent of each of the 10 IMU+leg
-factors, `jacrev` over the 26-dim local tangent of each (feature, frame)
-projection pair. The Gauss-Newton blocks are assembled from them without
-ever materializing the big Jacobian. The segment-major tangent layout
+Per-factor Jacobians: `jacfwd` over the 38-dim local tangent of each of the
+10 IMU+leg factors, vmapped across factors, and the projection rows of
+every (feature, frame) pair over its 26-dim local tangent from
+`ops/proj_rows.proj_rows` (a hand-written kernel on the card, `jacrev` on
+the CPU). The Gauss-Newton blocks are assembled from them without ever
+materializing the big Jacobian. The segment-major tangent layout
 (ops/factors.py) puts every block in a contiguous region, and the one
 dynamic coupling (a projection factor's anchor frame) is a one-hot
 contraction, so the whole assembly is free of in-place writes and runs under
@@ -20,32 +21,20 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.func import jacfwd, jacrev, vmap
+from torch.func import jacfwd, vmap
 from torch.profiler import record_function
 
 from cerberus_tpu_torch import config as C
 from cerberus_tpu_torch.ops import factors as fac
+from cerberus_tpu_torch.ops.proj_rows import proj_rows
 from cerberus_tpu_torch.utils import lie
 
 NF = C.NUM_FRAMES
 NI = NF - 1      # inter-keyframe intervals (one IMU+leg factor each)
 
-# per projection pair local tangent: [pose_i(6), pose_j(6), ex0(6), ex1(6),
-# depth(1), td(1)]
-PROJ_TAN = 26
 # per IMU+leg factor local tangent (segment-grouped): [pose_i(6), pose_j(6),
 # sb_i(9), sb_j(9), rho_i(4), rho_j(4)]
 ILEG_TAN = 38
-
-
-def _retract_pose(p, q, d6):
-    return p + d6[0:3], lie.quat_normalize(lie.quat_mul(q, lie.delta_q(d6[3:6])))
-
-
-def _with_value(f):
-    """f -> (d -> (f(d), f(d))): the `has_aux` form that returns a
-    Jacobian together with the residual it was taken at."""
-    return lambda d: (lambda r: (r, r))(f(d))
 
 
 def _ileg_pairs(st: fac.WindowState, data: fac.WindowData):
@@ -67,8 +56,8 @@ def _ileg_residual_pair(delta, pair, gravity):
      p_j0, q_j0, v_j0, ba_j0, bg_j0, rho_j0,
      pre_dp, pre_dq, pre_dv, pre_deps, Jk, pre_L, pre_dt,
      pre_ba, pre_bg, pre_rho, ivalid) = pair
-    p_i, q_i = _retract_pose(p_i0, q_i0, delta[0:6])
-    p_j, q_j = _retract_pose(p_j0, q_j0, delta[6:12])
+    p_i, q_i = fac.retract_pose(p_i0, q_i0, delta[0:6])
+    p_j, q_j = fac.retract_pose(p_j0, q_j0, delta[6:12])
     v_i = v_i0 + delta[12:15]
     ba_i = ba_i0 + delta[15:18]
     bg_i = bg_i0 + delta[18:21]
@@ -116,7 +105,7 @@ def _ileg_rows(st: fac.WindowState, data: fac.WindowData):
 
     def one(pair):
         f = lambda d: _ileg_residual_pair(d, pair, data.gravity)
-        J, r = jacfwd(_with_value(f), has_aux=True)(zero38)
+        J, r = jacfwd(fac.with_value(f), has_aux=True)(zero38)
         return r, J
 
     return vmap(one)(_ileg_pairs(st, data))
@@ -165,67 +154,8 @@ def _proj_rows_split(st: fac.WindowState, data: fac.WindowData):
     F = st.depth.shape[0]
     dtype, dev = st.p.dtype, st.p.device
     P = F * NF
-
-    def per_feature(f_pts, f_pts_r, f_vel, f_vel_r, f_td, f_obs, f_stereo,
-                    f_valid, start, depth_f):
-        Ei = (frames == start).to(dtype)                   # (11,) one-hot
-        pts_i0 = Ei @ f_pts
-        vel_i0 = Ei @ f_vel
-        td_i0 = Ei @ f_td
-        obs_i = (Ei @ f_obs.to(dtype)) > 0.5
-        p_i0 = Ei @ st.p
-        q_i0 = Ei @ st.q                                   # exact row select
-
-        def per_frame(j, pts_j0, vel_j0, td_j0, p_j0, q_j0, obs_j, stereo_j,
-                      pts_jr0, vel_jr0):
-            def res26(delta):
-                p_i, q_i = _retract_pose(p_i0, q_i0, delta[0:6])
-                p_j, q_j = _retract_pose(p_j0, q_j0, delta[6:12])
-                tic0, qic0 = _retract_pose(st.tic[0], st.qic[0], delta[12:18])
-                tic1, qic1 = _retract_pose(st.tic[1], st.qic[1], delta[18:24])
-                inv_dep = depth_f + delta[24]
-                td = st.td + delta[25]
-                pts_i_td = pts_i0 - (td - td_i0) * torch.cat([vel_i0, z1])
-                pts_j_td = pts_j0 - (td - td_j0) * torch.cat([vel_j0, z1])
-                pts_cam_i = pts_i_td / inv_dep
-                pts_imu_i = lie.quat_rotate(qic0, pts_cam_i) + tic0
-                pts_w = lie.quat_rotate(q_i, pts_imu_i) + p_i
-                pts_imu_j = lie.quat_rotate(lie.quat_conj(q_j), pts_w - p_j)
-                pts_cam_j = lie.quat_rotate(lie.quat_conj(qic0),
-                                            pts_imu_j - tic0)
-                zj = pts_cam_j[2]
-                zj = torch.where(torch.abs(zj) < 1e-6,
-                                 torch.full_like(zj, 1e-6), zj)
-                r_mono = fac.PROJ_SQRT_INFO * (pts_cam_j[:2] / zj
-                                               - pts_j_td[:2])
-                mono_ok = obs_j & obs_i & (j != start) & f_valid
-                r_mono = fac._zero_where(mono_ok, r_mono)
-                pts_jr_td = pts_jr0 - (td - td_j0) * torch.cat([vel_jr0, z1])
-                pts_cam_jr = lie.quat_rotate(lie.quat_conj(qic1),
-                                             pts_imu_j - tic1)
-                zr = pts_cam_jr[2]
-                zr = torch.where(torch.abs(zr) < 1e-6,
-                                 torch.full_like(zr, 1e-6), zr)
-                r_st = fac.PROJ_SQRT_INFO * (pts_cam_jr[:2] / zr
-                                             - pts_jr_td[:2])
-                st_ok = stereo_j & obs_i & f_valid
-                r_st = fac._zero_where(st_ok, r_st)
-                return torch.cat([r_mono, r_st])
-
-            # reverse mode: 4 output cotangents instead of 26 input tangents
-            J, r = jacrev(_with_value(res26), has_aux=True)(zero26)
-            return r, J
-
-        return vmap(per_frame)(frames, f_pts, f_vel, f_td, st.p, st.q,
-                               f_obs, f_stereo, f_pts_r, f_vel_r)
-
     with record_function("proj_jacobians"):
-        zero26 = torch.zeros((PROJ_TAN,), dtype=dtype, device=dev)
-        frames = torch.arange(NF, device=dev)
-        z1 = torch.zeros(1, dtype=dtype, device=dev)
-        r_f, J_f = vmap(per_feature)(
-            data.f_pts, data.f_pts_r, data.f_vel, data.f_vel_r, data.f_td,
-            data.f_obs, data.f_stereo, data.f_valid, data.f_start, st.depth)
+        r_f, J_f = proj_rows(st, data)
     with record_function("proj_normal"):
         r_p = r_f.reshape(P, 4)
 
@@ -242,6 +172,7 @@ def _proj_rows_split(st: fac.WindowState, data: fac.WindowData):
         J_pw = J_f * sw[..., None]                         # (F, NF, 4, 26)
 
         # ---- widen the pose columns to all 11 frames (one-hot contraction)
+        frames = torch.arange(NF, device=dev)
         Ei = (data.f_start[:, None] == frames).to(dtype)  # (F, 11) anchor
         Ej = torch.eye(NF, dtype=dtype, device=dev)        # (11, 11) frame j
         pose_wide = (

@@ -9,7 +9,8 @@ work (LM iterations, accepted steps, valid feature slots), kept only while
 a torch.profiler records, so that a traced run reads its ratios where the
 work happens. Off the profiler `count` is one flag check: it stores and
 launches nothing. Under it a device tensor is added on its device, and
-nothing is read back until `counters()`.
+nothing is read back until `counters()`. accumulator() gives a kernel a
+counter on its device to add into itself.
 """
 
 from __future__ import annotations
@@ -34,6 +35,19 @@ def count(name: str, value) -> None:
         return
     old = _COUNTS.get(name)
     _COUNTS[name] = value if old is None else old + value
+
+
+def accumulator(name: str, device):
+    """The counter `name` as a one-element int64 tensor on `device` (zero
+    when first asked for) for a kernel to add into, while a profiler
+    records; None otherwise."""
+    if not recording():
+        return None
+    acc = _COUNTS.get(name)
+    if acc is None:
+        acc = _COUNTS[name] = torch.zeros((), dtype=torch.int64,
+                                          device=device)
+    return acc
 
 
 def counters() -> dict:

@@ -29,6 +29,16 @@ Phases, each printed with its elapsed seconds:
          cluster body: its row names the body and the cluster size, with
          the bound of the cluster's own SMs beside the card's);
        - cholesky_solve, f32 (on no path of the port, as its TPU original);
+     then the projection rows' kernel (csrc/proj_rows.cu, no TPU kernel
+     behind it) on the fleet's windows (build_fleet, F = 160) at f32
+     B = 4,096 and f64 B = 2,048 (the benchmark's cells) and f64 B = 1
+     (the streaming estimator's), against its plain jacrev version on the
+     same card inputs (row gap under PROJ_TOL), its counters of one launch
+     under a profiler against the pairs and the masks, timed beside the
+     plain version and its bytes' least time (no library call computes
+     it); every path after that counts its launches as well, by dtype
+     and B = 1: exactly max_iters + 1 a solve on the batched, single-window,
+     option-set and fleet paths, at least that on the streaming ones;
   4. batched path: the batched full-width window solve — 128 windows of the
      10 s simulated sequence (11 frames, F = 160, 222-dim reduced system),
      12 LM iterations, f32 — with every kernel launch counted, the results
@@ -195,6 +205,7 @@ from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.func import vmap  # noqa: E402
 
 from cerberus_tpu_torch import _build  # noqa: E402
 from cerberus_tpu_torch import native  # noqa: E402
@@ -220,6 +231,7 @@ from cerberus_tpu_torch.ops import klt  # noqa: E402
 from cerberus_tpu_torch.ops import cholesky_solve as cs  # noqa: E402
 from cerberus_tpu_torch.ops import factors as fac  # noqa: E402
 from cerberus_tpu_torch.ops import lane_cholesky as lc  # noqa: E402
+from cerberus_tpu_torch.ops import proj_rows as pr  # noqa: E402
 from cerberus_tpu_torch.ops.solver import (SolveOptions, solve_window,  # noqa: E402
                                            solve_window_batched)
 from cerberus_tpu_torch.data.replay import score  # noqa: E402
@@ -238,7 +250,11 @@ from cerberus_tpu_torch.parallel.mesh import init_distributed  # noqa: E402
 from cerberus_tpu_torch.utils import lie  # noqa: E402
 from cerberus_tpu_torch.utils.checkpoint import (load_estimator,  # noqa: E402
                                                  save_estimator)
+from cerberus_tpu_torch.utils import profiling  # noqa: E402
 from cerberus_tpu_torch.utils.metrics import read_metrics  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from torch_port_util import proj_read_pairs, rows_gap  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth,
 # float32 outside the tensor cores, float64 on the tensor cores (DMMA,
@@ -720,6 +736,24 @@ KERNELS = {
                     "lane_cholesky_solve[f32] B=1024",
                     "lane_cholesky_solve[f32] n=382")},
 }
+# the projection rows' kernel: no TPU kernel stands behind it (the JAX
+# package takes the rows by a vmapped jax.jacrev); every f32 and f64 launch,
+# and the f64 launches of one window (B = 1, the streaming estimator's: a
+# subset of the f64 row)
+KERNELS.update({(name, dtype): dict(
+    route="cuda", source="cerberus_tpu_torch/csrc/proj_rows.cu",
+    replaces=None) for name, dtype in (
+        ("proj_rows[f32]", torch.float32), ("proj_rows[f64]", torch.float64),
+        ("proj_rows[f64] B=1", torch.float64))})
+PROJ_ROWS = ("proj_rows[f32]", "proj_rows[f64]", "proj_rows[f64] B=1")
+# the projection rows' rows: (dtype, windows of build_fleet at F = 160)
+# they are checked and timed at: the benchmark's cells, the streaming B = 1
+PROJ_SHAPES = {"proj_rows[f32]": (torch.float32, 4096),
+               "proj_rows[f64]": (torch.float64, 2048),
+               "proj_rows[f64] B=1": (torch.float64, 1)}
+# the projection rows' kernel vs its plain jacrev version, largest row gap
+# over the row's largest entry (tests/test_torch_cuda.py's tolerances)
+PROJ_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # the shapes those rows are timed at (kernels phase)
 F32_PATH_SHAPES = {"lane_cholesky_solve[f32] B=512": (512, 222),
                    "lane_cholesky_solve[f32] B=1024": (1024, 222),
@@ -940,6 +974,7 @@ def reset_counts():
     lc.LAUNCHES.clear()
     lc.LAUNCHES_BY_SHAPE.clear()
     cs.LAUNCHES = 0
+    pr.LAUNCHES.clear()
 
 
 def read_counts():
@@ -947,6 +982,10 @@ def read_counts():
     by_dtype = Counter()
     for (dtype, _), k in lc.LAUNCHES.items():
         by_dtype[dtype] += k
+    proj = Counter()
+    for (dtype, B, _), k in pr.LAUNCHES.items():
+        proj[dtype] += k
+        proj["B=1"] += k if dtype == torch.float64 and B == 1 else 0
     f32 = lambda B, n: lc.LAUNCHES_BY_SHAPE[(torch.float32, B, n)]
     return {"lane_cholesky_solve[f32]": by_dtype[torch.float32],
             "lane_cholesky_solve[f64]": by_dtype[torch.float64],
@@ -954,12 +993,39 @@ def read_counts():
             "cholesky_solve": cs.LAUNCHES,
             "lane_cholesky_solve[f32] B=512": f32(512, 222),
             "lane_cholesky_solve[f32] B=1024": f32(1024, 222),
-            "lane_cholesky_solve[f32] n=382": lc.LAUNCHES[(torch.float32, 382)]}
+            "lane_cholesky_solve[f32] n=382": lc.LAUNCHES[(torch.float32, 382)],
+            "proj_rows[f32]": proj[torch.float32],
+            "proj_rows[f64]": proj[torch.float64],
+            "proj_rows[f64] B=1": proj["B=1"]}
 
 
 def only(want):
     """read_counts()'s rows with the launches of `want` and 0 elsewhere."""
     return {name: want.get(name, 0) for name, _ in KERNELS}
+
+
+def solver_rows(counts):
+    """counts without the projection rows' kernel's rows: the Cholesky
+    kernels' launches, which a path's check holds exactly where it
+    counts the projection rows' launches apart (check_proj_launches)."""
+    return {k: v for k, v in counts.items() if k not in PROJ_ROWS}
+
+
+def check_proj_launches(label, counts, dtype, solves):
+    """A path of single-window f64 solves or of f32 solves: the
+    projection rows' kernel launched in that type only (and in f64 for
+    one window a launch), at least max_iters + 1 times a solve (`solves`:
+    the least launches; the marginalization's linearization adds one a
+    marginalization)."""
+    if dtype == torch.float64:
+        ok = (counts["proj_rows[f32]"] == 0 and counts["proj_rows[f64]"]
+              == counts["proj_rows[f64] B=1"] >= solves)
+    else:
+        ok = (counts["proj_rows[f64]"] == 0
+              and counts["proj_rows[f32]"] >= solves)
+    if not ok:
+        raise AssertionError(f"{label}: projection rows' launches {counts}, "
+                             f"want at least {solves} of {dtype} only")
 
 
 def check_undistort():
@@ -1006,7 +1072,7 @@ def build():
     """The kernels with nvcc and the native sensor sync with g++, one
     compiler each, all started together; a failed build raises."""
     t0 = time.perf_counter()
-    names = ("lane_cholesky", "cholesky_solve")
+    names = ("lane_cholesky", "cholesky_solve", "proj_rows")
     with ThreadPoolExecutor(len(names) + 1) as pool:
         native_lib = pool.submit(_build.build_native)
         libs = list(pool.map(_build.build, names)) + [native_lib.result()]
@@ -1056,11 +1122,13 @@ def lane_numbers(dev, dtype, B, n):
 
 def timed(nums, kernel, plain, library):
     """nums with the kernel's, the plain version's and the library call's
-    times (cuda_ms), the kernel's host enqueue time per call, its time
-    taken one call at a time (one_call_ms) and its share of its bound."""
+    times (cuda_ms; library_ms None where no library call computes the
+    function), the kernel's host enqueue time per call, its time taken one
+    call at a time (one_call_ms) and its share of its bound."""
     ms, enqueue_ms = cuda_ms(kernel)
     nums.update(ms=ms, plain_ms=cuda_ms(plain, calls=2, reps=3)[0],
-                library_ms=cuda_ms(library)[0], enqueue_ms=enqueue_ms,
+                library_ms=cuda_ms(library)[0] if library else None,
+                enqueue_ms=enqueue_ms,
                 one_call_ms=one_call_ms(kernel),
                 bound_share=nums["bound_ms"] / ms)
     return nums
@@ -1112,6 +1180,49 @@ def cholesky_solve_numbers(dev, B, n, pad=0, time_it=True):
         return nums
     return timed(nums, lambda: cs.cholesky_solve(H, b, lam),
                  lambda: cs.cholesky_solve_plain(H, b, lam), library)
+
+
+def proj_numbers(dev, name):
+    """The projection rows' kernel at row `name`'s shape (PROJ_SHAPES) on
+    the fleet's windows: its rows against its plain jacrev version's on
+    the same card inputs (rows_gap under PROJ_TOL, zero rows the same),
+    one launch's counters under a profiler against the pairs and the
+    masks, and its times beside the plain version's and its bytes' least
+    time: every pair's 108 written values, and 11 values and two mask
+    bytes read by each pair with a camera's mask on (csrc/proj_rows.cu;
+    bytes only: its few hundred operations a pair take under a tenth of
+    that). No library call computes the rows."""
+    dtype, B = PROJ_SHAPES[name]
+    segments = min(B, 4)
+    states, datas, _ = build_fleet(n_segments=segments,
+                                   n_perturb=B // segments, F=160,
+                                   dtype=dtype, device=dev)
+    args = pr._inputs(states, datas)
+    F = states.depth.shape[1]
+    gap = rows_gap(pr.proj_rows_op(*args), vmap(pr.proj_rows_plain)(*args))
+    if not gap < PROJ_TOL[dtype]:
+        raise AssertionError(f"{name}: rows gap {gap} >= {PROJ_TOL[dtype]}")
+    from torch.profiler import ProfilerActivity, profile
+
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        pr.proj_rows_op(*args)
+    counters = profiling.counters()
+    profiling.reset_counters()
+    pairs, read = B * F * pr.NF, proj_read_pairs(datas)
+    if counters != {"proj.kernel_pairs": pairs,
+                    "proj.kernel_read_pairs": read}:
+        raise AssertionError(f"{name}: counters {counters}, want {pairs} "
+                             f"pairs, {read} read")
+    es = torch.empty((), dtype=dtype).element_size()
+    bound_ms, bound_by = bound(pairs * 108 * es + read * (11 * es + 2), 0,
+                               F32_FLOP_PER_S)
+    return timed(dict(max_rows_gap=gap, shape=[B, F], pairs=pairs,
+                      read_pairs=read, bound_ms=bound_ms, bound_by=bound_by,
+                      every_pair_read_bound_ms=pairs * (119 * es + 2)
+                      / HBM_BYTES_PER_S * 1e3),
+                 lambda: pr.proj_rows_op(*args),
+                 lambda: vmap(pr.proj_rows_plain)(*args), None)
 
 
 def check_lane(dev, dtype, tol):
@@ -1204,9 +1315,16 @@ def check_kernels(dev):
         phase(f"kernel cholesky_solve B={B} n={n} pad={pad}", t0, **nums)
     chol = dict(per_shape[(BATCH, 222, 0)])
     del chol["rel_err"]
+
+    t0 = time.perf_counter()
+    proj = {}
+    for name in PROJ_ROWS:
+        proj[name] = proj_numbers(dev, name)
+        phase(f"kernel {name}", t0, **proj[name])
+        torch.cuda.empty_cache()
     return {"lane_cholesky_solve[f32]": f32, "lane_cholesky_solve[f64]": f64,
             "lane_cholesky_solve[f64] n=382": f64_full,
-            "cholesky_solve": chol, **f32_paths}
+            "cholesky_solve": chol, **f32_paths, **proj}
 
 
 def batched_problem(dev):
@@ -1243,16 +1361,19 @@ def batched_problem(dev):
 def count_launches(label, solve, *args):
     """Run one solve with the launch counts set to 0 just before it; the
     f32 kernel's count, read just after, must be one launch per LM
-    iteration, and no other kernel may launch."""
+    iteration, the projection rows' one per assembly (ITERS + 1, for the
+    whole batch), and no other kernel may launch."""
     t0 = time.perf_counter()
     reset_counts()
     out = solve(*args)
     torch.cuda.synchronize()
     counts = read_counts()
     phase(label, t0, iters=ITERS, launches=counts)
-    if counts != only({"lane_cholesky_solve[f32]": ITERS}):
+    if counts != only({"lane_cholesky_solve[f32]": ITERS,
+                       "proj_rows[f32]": ITERS + 1}):
         raise AssertionError(f"{label}: launches {counts}, want {ITERS} "
-                             f"of lane_cholesky_solve[f32] only")
+                             f"of lane_cholesky_solve[f32] and {ITERS + 1} "
+                             f"of proj_rows[f32] only")
     return out, counts
 
 
@@ -1326,10 +1447,11 @@ def batched_path(dev):
     return counts, batched_s, (states, datas, opts)
 
 
-def solve_counted(label, want_n, solve, *args):
+def solve_counted(label, want_n, want_proj, solve, *args):
     """One solve with the launch counts set to 0 just before it; every
     launch read just after must be of the f64 kernel at n = want_n, one per
-    LM iteration (ITERS); host-synchronised ms of the call."""
+    LM iteration (ITERS), and of the projection rows' f64 kernel at B = 1,
+    want_proj; host-synchronised ms of the call."""
     t0 = time.perf_counter()
     reset_counts()
     out = solve(*args)
@@ -1337,10 +1459,14 @@ def solve_counted(label, want_n, solve, *args):
     ms = (time.perf_counter() - t0) * 1e3
     counts = read_counts()
     by_n = dict(lc.LAUNCHES)
-    if by_n != {(torch.float64, want_n): ITERS} or counts["cholesky_solve"]:
+    proj = {k: counts[k] for k in PROJ_ROWS}
+    if by_n != {(torch.float64, want_n): ITERS} or counts["cholesky_solve"] \
+            or proj != {"proj_rows[f32]": 0, "proj_rows[f64]": want_proj,
+                        "proj_rows[f64] B=1": want_proj}:
         raise AssertionError(f"{label}: launches by (dtype, n) {by_n}, "
                              f"{counts}, want {ITERS} of float64 at n = "
-                             f"{want_n} only")
+                             f"{want_n} and {want_proj} of "
+                             f"proj_rows[f64] B=1 only")
     return out, counts, ms
 
 
@@ -1364,8 +1490,11 @@ def solver_options(problem):
         o = SolveOptions(max_iters=ITERS, structured=s, schur=c,
                          project_gauge=g)
         n = 222 if s and c else 222 + F
+        # the structured assembly takes the projection rows from the
+        # kernel; the dense one (structured False) linearizes by jacfwd
         res[name], launches[f"solve_window {name}"], first_ms = solve_counted(
-            f"solve_window {name}", n, solve_window, st0, d0, o)
+            f"solve_window {name}", n, ITERS + 1 if s else 0, solve_window,
+            st0, d0, o)
         t0 = time.perf_counter()
         solve_window(st0._replace(p=st0.p + 1e-9), d0, o)
         torch.cuda.synchronize()
@@ -1443,9 +1572,10 @@ def solver_options(problem):
                    len(order) + 1 + NUDGE_SAMPLES - len(nudged)):
         nudged.append(solve_window_batched(nudge(i), datas, opts))
     ab = {label: B / float(np.median(t)) for label, t in secs.items()}
-    want = {"kernel": only({"lane_cholesky_solve[f32]": ITERS}),
-            "library": only({}),
-            "high": only({"lane_cholesky_solve[f32]": ITERS})}
+    proj = {"proj_rows[f32]": ITERS + 1}
+    want = {"kernel": only({"lane_cholesky_solve[f32]": ITERS, **proj}),
+            "library": only(proj),
+            "high": only({"lane_cholesky_solve[f32]": ITERS, **proj})}
     for label in runs:
         if launches[f"solve_window_batched {label}"] != want[label]:
             raise AssertionError(f"solve_window_batched {label}: launches "
@@ -1565,14 +1695,19 @@ def run_sequence(label, sim_cfg, dev, frames=STREAM_FRAMES,
 def check_launches(label, out, counts):
     """The f64 kernel launches once per LM iteration of every solve the
     estimator made (ITERS per streaming solve, INIT_ITERS per
-    initialization solve), and no other kernel launches."""
+    initialization solve), and no other Cholesky kernel launches; the
+    projection rows' f64 kernel at B = 1 at least once an assembly of
+    those solves (check_proj_launches)."""
     st = out["estimator"].stats
     want = ITERS * st["solves"] + E.INIT_ITERS * st["init_solves"]
-    if counts != only({"lane_cholesky_solve[f64]": want}):
+    if solver_rows(counts) != solver_rows(
+            only({"lane_cholesky_solve[f64]": want})):
         raise AssertionError(f"{label}: launches {counts}, want {want} of "
                              f"lane_cholesky_solve[f64] only ({ITERS} x "
                              f"{st['solves']} solves + {E.INIT_ITERS} x "
                              f"{st['init_solves']} initialization solves)")
+    check_proj_launches(label, counts, torch.float64,
+                        want + st["solves"] + st["init_solves"])
 
 
 def streaming_path(dev):
@@ -2213,9 +2348,11 @@ def fleet(dev):
     phase("solve_fleet", t0, launches=counts,
           median_traj_err_m=float(np.median(err)),
           cost_reduced=int((cost < cost0).sum()))
-    if counts != only({"lane_cholesky_solve[f32]": ITERS}):
+    if counts != only({"lane_cholesky_solve[f32]": ITERS,
+                       "proj_rows[f32]": ITERS + 1}):
         raise AssertionError(f"fleet: launches {counts}, want {ITERS} of "
-                             f"lane_cholesky_solve[f32] only")
+                             f"lane_cholesky_solve[f32] and {ITERS + 1} of "
+                             f"proj_rows[f32] only")
     gates = {"every cost < cost0": bool(np.all(cost < cost0)),
              "median traj_err < 0.02 m": float(np.median(err)) < 0.02,
              "finite": bool(np.isfinite(cost).all())}
@@ -2512,8 +2649,11 @@ MEASURED = {
 
 def rows_of(by_shape):
     """A driver's launches of one timed program ({"float32 B=128 n=222":
-    k}, `evals.measure.launches_since`) as read_counts()'s rows."""
-    counts = only({})
+    k}, `evals.measure.launches_since`) as read_counts()'s rows; the
+    projection rows' kernel's None (each measurement script's timer counts
+    the lane kernel's launches alone per program; the rows' launches over
+    a script's whole call are the path "<name> (whole call)")."""
+    counts = dict(only({}), **dict.fromkeys(PROJ_ROWS))
     for key, k in by_shape.items():
         dt, B, n = key.split()
         B, n = int(B[2:]), int(n[2:])
@@ -2611,7 +2751,7 @@ def check_driver(name, res, counts):
     if set(got) != set(want):
         raise AssertionError(f"{name}: timed programs {sorted(got)}, want "
                              f"{sorted(want)}")
-    paths, total = {}, untimed_launches(name, res)
+    paths, total = {}, solver_rows(untimed_launches(name, res))
     for tag, per_call in want.items():
         expect = {shape: k * got[tag]["calls"] for shape, k in
                   per_call.items()}
@@ -2622,8 +2762,8 @@ def check_driver(name, res, counts):
         paths[path_name(name, tag)] = rows_of(got[tag]["by_shape"])
         total = {k: total[k] + paths[path_name(name, tag)][k] for k in total}
     if name == "multichip_scaling":
-        total = only({})
-    if counts != total:
+        total = solver_rows(only({}))
+    if solver_rows(counts) != total:
         raise AssertionError(f"{name}: launches counted {counts}, the "
                              f"driver's programs account for {total}")
     return paths
@@ -2669,6 +2809,7 @@ def measurement_drivers(dev, children):
             torch.cuda.synchronize()
             counts = read_counts()
             launches.update(check_driver(name, res, counts))
+            launches[f"{name} (whole call)"] = counts
             results[name] = {k: v for k, v in res.items()
                              if k != "_launches"}
             phase(f"measurement drivers: {name}", t0, launches=counts)
@@ -2943,7 +3084,8 @@ def run_configs(dev):
             res = {k: v for k, v in res.items() if k != "_meta"}
             phase(label, t0, launches=counts, estimators=len(mine),
                   result=json.dumps(res))
-            gates[f"{label}: launches {counts} == {want}"] = counts == want
+            gates[f"{label}: launches {counts} == {want}"] = \
+                solver_rows(counts) == solver_rows(want)
             gates[f"{label}: solves > 0, no reboot"] = all(
                 e.stats["solves"] > 0 and e.stats["reboots"] == 0
                 for e in mine)
@@ -3007,7 +3149,8 @@ def robustness(dev, name):
         phase(label, t0, launches=counts, result=json.dumps(nums))
         g = {"no error, solves > 0": "error" not in entry
              and entry["solves"] > 0,
-             f"launches {counts} == {want}": counts == want,
+             f"launches {counts} == {want}":
+                 solver_rows(counts) == solver_rows(want),
              f"reboots == JAX's {jax['reboots']}":
                  entry["reboots"] == jax["reboots"]}
         if "error" not in entry and jax["placeholder_at"] is None:
@@ -3236,7 +3379,7 @@ def diag_call(label, fn, want_launches):
     counts = read_counts()
     want = only(want_launches(res))
     phase(label, t0, launches=counts)
-    return res, counts, ([] if counts == want
+    return res, counts, ([] if solver_rows(counts) == solver_rows(want)
                          else [f"{label}: launches {counts} != {want}"])
 
 
@@ -3614,7 +3757,10 @@ def main():
                  "lane_cholesky_solve[f32] B=1024":
                      "profile_inloop sweep B=1024",
                  "lane_cholesky_solve[f32] n=382":
-                     "profile_solver assembly+chol"}
+                     "profile_solver assembly+chol",
+                 "proj_rows[f32]": "solve_window_batched",
+                 "proj_rows[f64]": "long run loop",
+                 "proj_rows[f64] B=1": "long run loop"}
     rows = []
     for (name, dtype), meta in KERNELS.items():
         rows.append(dict(

@@ -17,7 +17,12 @@ and launches the f64 kernel once per LM iteration; the robustness battery
 runs a case on the card at full width; the measurement drivers run on the
 card by default, and profile_inloop's variant loop never waits for it;
 diag_rho's window solve launches the f64 kernel at (1, 222) once per LM
-iteration and agrees with the CPU. (chip_smoke.py holds the kernels to their plain versions and the card's
+iteration and agrees with the CPU; the projection rows' kernel agrees with
+its plain jacrev version (f32, f64; F = 16, 160; B = 1, 64; the anchor
+frame, masks, the 1e-6 clamp, q off unit norm), refuses what it does not
+take, launches once an assembly for a whole batch, and a float32 fleet
+solve through it stays within the benchmark's float32 limits of one
+through the plain version. (chip_smoke.py holds the kernels to their plain versions and the card's
 solve, replays, tracker and EKF to the CPU's.) Every test here but the
 OpenCV-free camera's and the evaluation and measurement scripts' needs a
 CUDA device and skips without one.
@@ -200,6 +205,7 @@ def test_traced_lm_loop_never_waits_for_the_device(small_batch):
 
     from cerberus_tpu_torch.ops.solver import SolveOptions, solve_window_batched
     from cerberus_tpu_torch.utils import profiling
+    from torch_port_util import proj_read_pairs
 
     states, datas = small_batch
     opts = SolveOptions(max_iters=2)
@@ -219,6 +225,10 @@ def test_traced_lm_loop_never_waits_for_the_device(small_batch):
     assert counts["lm.window_iterations"] == 2 * B
     assert counts["lm.accepted_steps"] == float(info.accepted.sum())
     assert counts["assemble.valid_slots"] == float(datas.f_valid.sum())
+    # the projection rows' kernel: B x F x 11 pairs an assembly, 3 of them,
+    # and of those the pairs with a camera's mask on read their values
+    assert counts["proj.kernel_pairs"] == 3 * datas.f_valid.numel() * 11
+    assert counts["proj.kernel_read_pairs"] == 3 * proj_read_pairs(datas)
 
 
 @pytest.mark.parametrize("structured", [True, False])
@@ -887,3 +897,110 @@ def test_diag_rho_solve_on_the_card(cuda):
                                    err_msg=k)
     np.testing.assert_allclose([card["cost0"], card["cost"]],
                                [cpu["cost0"], cpu["cost"]], rtol=1e-8)
+
+
+# ---- the projection rows' kernel (csrc/proj_rows.cu) ----
+
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float64, 1e-10),
+    # the two routes round differently along ~30 dependent operations a
+    # row, with cancellation in the anchor-extrinsic columns (K - G):
+    # ~30 float32 epsilons (6e-8) of the row's largest entry, 1.8e-6
+    # measured with the kernel's arithmetic built for a CPU; 1e-4 leaves
+    # room for the card's fused multiply-adds
+    (torch.float32, 1e-4)])
+@pytest.mark.parametrize("F", [16, 160])
+@pytest.mark.parametrize("B", [1, 64])
+def test_proj_rows_kernel_matches_plain(cuda, dtype, tol, F, B):
+    """The kernel against the plain jacrev route on the same CUDA inputs,
+    every edge case of `proj_inputs` among them (the anchor frame, masks
+    false, the 1e-6 clamp, q off unit norm): the same rows, and the same
+    rows zero."""
+    from torch.func import vmap
+
+    from cerberus_tpu_torch.ops import proj_rows as pr
+    from torch_port_util import proj_inputs, rows_gap
+
+    st, d, clamped = proj_inputs(B, F, dtype, cuda)
+    args = pr._inputs(st, d)
+    pr.LAUNCHES.clear()
+    got = pr.proj_rows_op(*args)
+    torch.cuda.synchronize()
+    assert pr.LAUNCHES == {(dtype, B, F): 1}
+    want = vmap(pr.proj_rows_plain)(*args)
+    assert float(want[0][clamped].abs().max()) > 1e5     # the clamp bit
+    assert rows_gap(got, want) < tol
+
+
+def test_proj_rows_kernel_rejects_what_it_does_not_take(cuda):
+    from cerberus_tpu_torch.ops import proj_rows as pr
+    from torch_port_util import proj_inputs
+
+    from cerberus_tpu_torch.ops import factors as fac
+
+    st, d, _ = proj_inputs(2, 16, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        pr.proj_rows(fac.map_tensors(torch.Tensor.half, st), d)
+    with pytest.raises(TypeError):
+        pr.proj_rows_op(*pr._inputs(st, d._replace(
+            f_start=d.f_start.long())))
+    with pytest.raises(ValueError):
+        pr.proj_rows_op(*pr._inputs(st._replace(depth=st.depth[:, :8]), d))
+
+
+def test_batched_solve_launches_the_rows_kernel_once_an_assembly(small_batch):
+    """One launch an assembly for the whole batch: 13 in a 12-iteration
+    solve of B windows, not 13 B; a single window's solve the same."""
+    from cerberus_tpu_torch.ops import factors as fac
+    from cerberus_tpu_torch.ops import proj_rows as pr
+    from cerberus_tpu_torch.ops.solver import (SolveOptions, solve_window,
+                                               solve_window_batched)
+
+    states, datas = small_batch
+    B, F = states.depth.shape
+    pr.LAUNCHES.clear()
+    solve_window_batched(states, datas, SolveOptions())
+    assert pr.LAUNCHES == {(torch.float32, B, F): 13}
+    pr.LAUNCHES.clear()
+    first = lambda x: x[0]
+    solve_window(fac.map_tensors(first, states),
+                 fac.map_tensors(first, datas), SolveOptions(max_iters=4))
+    assert pr.LAUNCHES == {(torch.float32, 1, F): 5}
+    torch.cuda.synchronize()
+
+
+def test_fleet_solve_through_the_rows_kernel_within_f32_limits(cuda,
+                                                                monkeypatch):
+    """A float32 fleet solve through the kernel against the same solve
+    through the plain jacrev route on the card: the state gaps that the
+    benchmark's float32 cells hold the program to (`f32.*` limits of
+    vilo_bench/workloads/fleet-f32-dense.json) hold between the two."""
+    import json
+    from pathlib import Path
+
+    from cerberus_tpu_torch.ops import proj_rows as pr
+    from cerberus_tpu_torch.ops import structured
+    from cerberus_tpu_torch.ops.solver import SolveOptions
+    from cerberus_tpu_torch.parallel.fleet import build_fleet, solve_fleet
+
+    limits = json.loads((Path(__file__).resolve().parent.parent / "vilo_bench"
+                         / "workloads" / "fleet-f32-dense.json").read_text()
+                        )["limits"]
+    states, datas, truths = build_fleet(n_segments=2, n_perturb=16, F=160,
+                                        sim_duration=4.0, device=cuda)
+    pr.LAUNCHES.clear()
+    kernel = solve_fleet(states, datas, truths, None, SolveOptions())
+    assert sum(pr.LAUNCHES.values()) == 13
+    monkeypatch.setattr(structured, "proj_rows", lambda st, d:
+                        pr.proj_rows_plain(*pr._inputs(st, d)))
+    plain = solve_fleet(states, datas, truths, None, SolveOptions())
+    assert sum(pr.LAUNCHES.values()) == 13
+    B = states.p.shape[0]
+    gap = lambda f: (getattr(kernel.states, f).double()
+                     - getattr(plain.states, f).double()
+                     ).abs().reshape(B, -1).amax(dim=1)
+    p_gap, depth_gap = gap("p"), gap("depth")
+    assert torch.isfinite(kernel.cost).all()
+    assert float(p_gap.max()) <= limits["f32.p_gap"]
+    assert float(p_gap.median()) <= limits["f32.p_gap_median"]
+    assert float(depth_gap.max()) <= limits["f32.depth_gap"]
