@@ -7,6 +7,6 @@ One command runs one cell once:
 
 Everything that measures (traffic generation, the plain reference, the
 comparison that decides `correct`, the trace reduction, the peaks) lives in
-this folder and imports nothing of the JAX package; only `run.py` imports
-the program under test. See README.md.
+this folder and imports nothing of the JAX package; only the entries
+(`entries/`) import the program under test. See README.md.
 """

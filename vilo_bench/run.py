@@ -7,7 +7,9 @@ cell's end-to-end metrics, with --trace 1 its per-layer metrics. The last
 line of standard output is one JSON object (`correct`, `attempted`,
 `failed`, `metrics`, `device`, with --trace 1 `breakdown`, and last
 `checks`: each number compared beside its limit); the last lines of
-standard error repeat the checks. Exits non-zero, printing no result, when
+standard error repeat the checks. The cell's configuration names the entry
+that runs its requests (`entries/`, see `harness.py`); one that is not
+there raises before anything starts. Exits non-zero, printing no result, when
 there is no CUDA device or fewer than the cell asks for, or when the
 process holds the JAX package or JAX once the window has closed."""
 

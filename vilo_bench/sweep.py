@@ -1,4 +1,5 @@
-"""Batch-size sweep of one cell's configuration and traffic on the card: for
+"""Batch-size sweep of one fleet cell's configuration and traffic on the card
+(through the fleet entry, `entries/fleet.py`): for
 each batch size, a warm-up batch, `--timed` closed-loop batches (windows/s
 over them, peak memory) and one traced batch (device idle share, busy
 seconds, the top device operations). One JSON line per batch size.
@@ -19,26 +20,27 @@ import torch
 
 from vilo_bench import harness, spec
 from vilo_bench import trace as tr
+from vilo_bench.entries import fleet as entry
 
 
 def sweep_one(cell, program, seed, B, timed, device):
-    inputs = harness.make_inputs(cell.cfg, cell.traffic, seed, device,
-                                 program, batch=B)
+    inputs = entry.make_inputs(cell.cfg, cell.traffic, seed, device,
+                               program, batch=B)
     t = time.perf_counter()
-    harness.run_batch(program, inputs, cell.traffic, seed, -1, device)
+    entry.run_batch(program, inputs, cell.traffic, seed, -1, device)
     warm_s = time.perf_counter() - t
     torch.cuda.reset_peak_memory_stats(device)
     t = time.perf_counter()
-    batches = [harness.run_batch(program, inputs, cell.traffic, seed, k,
-                                 device)[0] for k in range(timed)]
+    batches = [entry.run_batch(program, inputs, cell.traffic, seed, k,
+                               device)[0] for k in range(timed)]
     elapsed = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated(device)
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function(harness.BATCH_SPAN):
-            harness.run_batch(program, inputs, cell.traffic, seed, timed,
-                              device)
+            entry.run_batch(program, inputs, cell.traffic, seed, timed,
+                            device)
     T = harness.read_trace(prof)
     lo, hi = T.spans(harness.BATCH_SPAN)[0]
     busy = tr.busy_us(T, lo, hi)
@@ -64,11 +66,14 @@ def main(argv=None) -> int:
         return 2
     cell = spec.load_cell(args.workload)
     device = torch.device("cuda:0")
-    program = harness.Program(cell.cfg)
+    if cell.entry.name != "fleet.py":
+        ap.error(f"{cell.name} does not run the fleet entry")
+    program = entry.Program(cell.cfg)
     program.load_kernel()
     for B in args.batches:
         try:
-            row = sweep_one(cell, program, args.seed, B, args.timed, device)
+            row = sweep_one(cell, program, args.seed, B, args.timed,
+                            device)
         except torch.cuda.OutOfMemoryError as e:
             row = {"batch": B, "oom": str(e).splitlines()[0]}
         torch.cuda.empty_cache()

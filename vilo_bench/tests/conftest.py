@@ -1,6 +1,6 @@
 """A small copy of the benchmark for CPU tests: the repository's
-BENCHMARK.json and the benchmark's data files in a temporary directory,
-cut to F = 16 feature slots and batches of 4 windows."""
+BENCHMARK.json, the benchmark's data files and its entries in a temporary
+directory, cut to F = 16 feature slots and batches of 4 windows."""
 
 import json
 import shutil
@@ -13,7 +13,7 @@ REPO = Path(__file__).resolve().parents[2]
 
 def small_repo(tmp_path: Path, iters: int = 12) -> Path:
     shutil.copy(REPO / "BENCHMARK.json", tmp_path)
-    for d in ("configs", "workloads", "metrics"):
+    for d in ("configs", "workloads", "metrics", "entries"):
         shutil.copytree(REPO / "vilo_bench" / d, tmp_path / "vilo_bench" / d)
     for p in (tmp_path / "vilo_bench" / "configs").glob("*.json"):
         c = json.loads(p.read_text())

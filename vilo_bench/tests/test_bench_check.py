@@ -1,11 +1,11 @@
-"""The comparison that decides `correct`: the plain reference agrees with
-the program's `solve_fleet` at a small size on the CPU, and a run whose
-timed path is broken underneath comes out not correct, once for each fault
-a fleet cell can have (the harness's look for a chip is skipped): on the
-CPU at a small size for the float64 cell, and on the card at their own
-size for the float32 cells, whose limits hold only there (the float32
-solve agrees with the float32 reference to the rounding of the card's
-kernels)."""
+"""The comparison that decides `correct`, through the fleet entry: the plain
+reference agrees with the program's `solve_fleet` at a small size on the
+CPU, and a run whose timed path is broken underneath comes out not correct,
+once for each fault a fleet cell can have (the harness's look for a chip
+is skipped): on the CPU at a small size for the float64 cell, and on the
+card at their own size for the float32 cells, whose limits hold only there
+(the float32 solve agrees with the float32 reference to the rounding of
+the card's kernels)."""
 
 import time
 
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from vilo_bench import fleet, harness, scene, spec
+from vilo_bench.entries import fleet as FLEET
 from vilo_bench.frozen import solver as ref_solver
 
 CELL = "fleet-f64-dense"
@@ -21,9 +22,9 @@ SEED = 2 ** 31 + 99
 
 def test_reference_matches_solve_fleet(small):
     cell = spec.load_cell(CELL, small)
-    prog = harness.Program(cell.cfg)
+    prog = FLEET.Program(cell.cfg)
     dev = torch.device("cpu")
-    inputs = harness.make_inputs(
+    inputs = FLEET.make_inputs(
         cell.cfg, cell.traffic, SEED, dev, prog,
         simulation=scene.Simulation(cell.cfg, cell.traffic, SEED, workers=0))
     init = fleet.perturbed(inputs.truths, cell.traffic, SEED, 0)
@@ -35,7 +36,7 @@ def test_reference_matches_solve_fleet(small):
     assert cost0 == pytest.approx(info.cost0, rel=1e-12)
     assert cost == pytest.approx(info.cost, rel=1e-9)
     assert (cost < 1e-6 * cost0).all()          # the solve did its work
-    for f in harness.STATE_FIELDS:
+    for f in FLEET.STATE_FIELDS:
         assert (getattr(st, f) - getattr(ref_st, f)).abs().max() < 1e-9, f
 
 
@@ -69,7 +70,7 @@ def altered(prog):
 
 def run(small, fault=None):
     cell = spec.load_cell(CELL, small)
-    prog = harness.Program(cell.cfg)
+    prog = FLEET.Program(cell.cfg)
     return harness.run_cell(
         cell, SEED, 0.0, False, "cpu", time.perf_counter(), program=prog,
         solve=fault(prog) if fault else None,
@@ -96,7 +97,7 @@ def test_a_broken_timed_path_is_not_correct(small, fault):
 @pytest.mark.parametrize("name", ["fleet-f32-dense", "fleet-f32-dim"])
 def test_on_the_card_a_run_is_correct_unless_broken(cuda, name, fault):
     cell = spec.load_cell(name)
-    prog = harness.Program(cell.cfg)
+    prog = FLEET.Program(cell.cfg)
     res = harness.run_cell(
         cell, SEED, 0.0, False, "cuda:0", time.perf_counter(), program=prog,
         solve=fault(prog) if fault else None)

@@ -13,6 +13,8 @@ import pytest
 
 from vilo_bench import harness, roofline
 from vilo_bench import trace as tr
+from vilo_bench.entries import fleet as FLEET
+
 
 B, F, ASSEMBLIES = 4096, 160, 13
 PAIRS = B * F * 11
@@ -47,8 +49,8 @@ def events(kernel_us, helper_us=0.0):
 
 
 def reading(evs, dtype="float32"):
-    return harness.Reading(tr.from_events(evs), (0.0, 10.0 ** 6), 12, B,
-                           222, dtype)
+    return FLEET.Reading(tr.from_events(evs), (0.0, 10.0 ** 6), 12, B,
+                         222, dtype)
 
 
 def read(name, r):

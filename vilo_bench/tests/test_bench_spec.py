@@ -5,6 +5,8 @@ no edit to any file that was there."""
 import json
 
 from vilo_bench import harness, spec
+from vilo_bench.entries import fleet as FLEET
+
 
 
 def test_finds_a_workload_and_a_metric_added_as_files(small):
@@ -31,7 +33,7 @@ def test_finds_a_workload_and_a_metric_added_as_files(small):
     assert [m["name"] for m in cell.per_layer][-1] == "batch_windows"
     old = spec.load_cell("fleet-f32-dense", small)
     assert "batch_windows" not in [m["name"] for m in old.per_layer]
-    r = harness.Reading(None, (0, 0), 12, 7, 222, "float32")
+    r = FLEET.Reading(None, (0, 0), 12, 7, 222, "float32")
     assert harness.metric_reader("batch_windows", cell.root)(r) == 7.0
 
 

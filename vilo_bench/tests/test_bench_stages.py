@@ -12,6 +12,8 @@ import pytest
 
 from vilo_bench import harness, stages
 from vilo_bench import trace as tr
+from vilo_bench.entries import fleet as FLEET
+
 
 
 def X(cat, name, ts, dur, corr=None):
@@ -61,8 +63,8 @@ def events(spans=SPANS):
 
 
 def reading(evs, iters=2):
-    return harness.Reading(tr.from_events(evs), (0.0, 1000.0), iters, 4096,
-                           222, "float32")
+    return FLEET.Reading(tr.from_events(evs), (0.0, 1000.0), iters, 4096,
+                         222, "float32")
 
 
 def read(name, r):

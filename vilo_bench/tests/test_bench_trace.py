@@ -7,6 +7,8 @@ import pytest
 
 from vilo_bench import harness
 from vilo_bench import trace as tr
+from vilo_bench.entries import fleet as FLEET
+
 
 KERNEL = "void blocked_cholesky::solve_kernel<float, 32, Undamped<float> >"
 
@@ -65,7 +67,7 @@ def test_breakdown_names_gaps_by_the_host(trace):
 
 
 def test_metric_readers(trace):
-    r = harness.Reading(trace, (0.0, 100.0), 2, 128, 222, "float32")
+    r = FLEET.Reading(trace, (0.0, 100.0), 2, 128, 222, "float32")
     read = lambda name: harness.metric_reader(name)(r)
     assert read("kernels_per_iter") == 1.5
     assert read("assemble_device_ms_per_iter") == pytest.approx(0.01)
@@ -77,7 +79,7 @@ def test_metric_readers(trace):
 
 
 def test_readers_return_nothing_without_a_trace():
-    r = harness.Reading(None, (0.0, 0.0), 12, 128, 222, "float32")
+    r = FLEET.Reading(None, (0.0, 0.0), 12, 128, 222, "float32")
     for name in ("kernels_per_iter", "assemble_device_ms_per_iter",
                  "device_idle_pct", "dispatch_ms_per_iter",
                  "lane_chol_roofline"):
